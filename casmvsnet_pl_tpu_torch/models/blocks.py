@@ -1,0 +1,47 @@
+"""Conv + BatchNorm + leaky ReLU blocks in 2D and 3D.
+
+Counterpart of ``casmvsnet_pl_tpu/models/blocks.py`` (plain forms only).
+Module and parameter names follow the reference CasMVSNet state dict
+(``conv.weight``, ``bn.*``; ``0.weight`` / ``1.*`` for the transposed
+block), so ``casmvsnet_pl_tpu/utils/torch_convert.py::convert_state_dict``
+maps a state dict of this package onto the JAX parameters unchanged.
+"""
+from __future__ import annotations
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+# InPlaceABN defaults: eps 1e-5, momentum 0.1 (flax 0.9), leaky slope 0.01.
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+LEAKY_SLOPE = 0.01
+
+
+class ConvBnAct(nn.Module):
+    """conv(bias=False) -> BatchNorm -> leaky_relu(0.01), 2D or 3D."""
+
+    def __init__(self, in_ch: int, out_ch: int, dims: int = 2,
+                 kernel_size: int = 3, stride: int = 1, pad: int = 1):
+        super().__init__()
+        conv = nn.Conv2d if dims == 2 else nn.Conv3d
+        bn = nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d
+        self.conv = conv(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=pad, bias=False)
+        self.bn = bn(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        return F.leaky_relu(self.bn(self.conv(x)), LEAKY_SLOPE)
+
+
+class ConvTransposeBnAct3D(nn.Sequential):
+    """ConvTranspose3d(k=3, s=2, p=1, output_padding=1, bias=False) -> BN ->
+    leaky_relu: shapes double exactly, as in the reference decoder."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(
+            nn.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1,
+                               output_padding=1, bias=False),
+            nn.BatchNorm3d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM))
+
+    def forward(self, x):
+        return F.leaky_relu(super().forward(x), LEAKY_SLOPE)
