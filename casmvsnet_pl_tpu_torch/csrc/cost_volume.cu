@@ -23,99 +23,16 @@
 // channels of an NHWC pixel with 16-byte vector loads.
 //
 // Numerics match the plain PyTorch version (ops/plane_sweep.py::
-// plain_cost_volume) to the last bit in float32: every product and sum that
-// the plain version rounds separately is written with an explicit
-// round-to-nearest intrinsic (__fmul_rn, __fadd_rn, ...), which nvcc never
-// contracts into an FMA, in the plain version's order.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// plain_cost_volume) to the last bit in float32: the projection and taps
+// (sampling.cuh) and the combine below round every product and sum
+// separately, in the plain version's order.
+#include "sampling.cuh"
 
 namespace {
 
+using namespace cv;
+
 constexpr int kThreads = 128;
-constexpr int kUnsupported = -1;  // (dtype, C, groups) not instantiated
-constexpr int kBadShape = -2;     // a dimension exceeds the launch grid
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
-
-// Loads the C channels of one NHWC pixel into f32 registers.
-template <typename T, int C>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&v)[C]) {
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(C % kVec == 0, "C must fill whole 16-byte loads");
-#pragma unroll
-  for (int i = 0; i < C / kVec; ++i) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) v[i * kVec + j] = to_float(e[j]);
-  }
-}
-
-// o += w * row, for the C channels of one tap.
-template <typename T, int C>
-__device__ __forceinline__ void add_tap(const T* __restrict__ p, float w,
-                                        float (&o)[C]) {
-  constexpr int kVec = 16 / sizeof(T);
-#pragma unroll
-  for (int i = 0; i < C / kVec; ++i) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      o[i * kVec + j] =
-          __fadd_rn(o[i * kVec + j], __fmul_rn(to_float(e[j]), w));
-    }
-  }
-}
-
-// Stores N f32 values as T, with 16-byte stores where the row allows.
-template <typename T, int N>
-__device__ __forceinline__ void store_row(T* __restrict__ p,
-                                          const float (&v)[N]) {
-  constexpr int kVec = 16 / sizeof(T);
-  if constexpr (N % kVec == 0) {
-#pragma unroll
-    for (int i = 0; i < N / kVec; ++i) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) e[j] = from_float<T>(v[i * kVec + j]);
-      reinterpret_cast<uint4*>(p)[i] = raw;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) p[k] = from_float<T>(v[k]);
-  }
-}
-
-// Adds one tap at integer-valued (yt, xt) with weight w to o, or nothing if
-// the tap lies outside the image (per-tap zeros padding). The test is on
-// the float coordinates, so far-outside or NaN coordinates never wrap.
-template <typename T, int C>
-__device__ __forceinline__ void tap(const T* __restrict__ src, int H, int W,
-                                    float yt, float xt, float w,
-                                    float (&o)[C]) {
-  if (xt >= 0.f && xt <= static_cast<float>(W - 1) && yt >= 0.f &&
-      yt <= static_cast<float>(H - 1)) {
-    const int64_t pix = static_cast<int64_t>(yt) * W + static_cast<int64_t>(xt);
-    add_tap<T, C>(src + pix * C, w, o);
-  }
-}
 
 // G == 1: variance over the V views. G > 1: groupwise correlation.
 template <typename T, int C, int G>
@@ -153,36 +70,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
 
   for (int v = 1; v < V; ++v) {
-    const float* P = proj + (b * (V - 1) + (v - 1)) * 12;
-    // n = (R @ (x, y, 1)) * d + T, rounded as ops/geometry.py::project_to_src
-    float n[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float rot = __fadd_rn(
-          __fadd_rn(__fmul_rn(__ldg(P + 4 * i), xf),
-                    __fmul_rn(__ldg(P + 4 * i + 1), yf)),
-          __ldg(P + 4 * i + 2));
-      n[i] = __fadd_rn(__fmul_rn(rot, dep), __ldg(P + 4 * i + 3));
-    }
-    float sx = static_cast<float>(W), sy = static_cast<float>(H);
-    if (!(n[2] <= __fmul_rn(1e-7f, dep))) {  // behind camera -> (W, H)
-      const float r = __frcp_rn(n[2]);
-      sx = __fmul_rn(n[0], r);
-      sy = __fmul_rn(n[1], r);
-    }
-    const float x0 = floorf(sx), y0 = floorf(sy);
-    const float x1 = x0 + 1.f, y1 = y0 + 1.f;
-    const float wx1 = __fsub_rn(sx, x0), wy1 = __fsub_rn(sy, y0);
-    const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
-
+    const Footprint f =
+        project(proj + (b * (V - 1) + (v - 1)) * 12, xf, yf, dep, H, W);
     float o[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) o[c] = 0.f;
-    const T* src = fb + v * view;
-    tap<T, C>(src, H, W, y0, x0, __fmul_rn(wy0, wx0), o);
-    tap<T, C>(src, H, W, y0, x1, __fmul_rn(wy0, wx1), o);
-    tap<T, C>(src, H, W, y1, x0, __fmul_rn(wy1, wx0), o);
-    tap<T, C>(src, H, W, y1, x1, __fmul_rn(wy1, wx1), o);
+    sample<T, C>(fb + v * view, C, 0, f, H, W, o);
 
     if constexpr (kVariance) {
 #pragma unroll
@@ -234,31 +125,6 @@ int launch(const void* feats, const void* proj, const void* depth, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C>
-int launch_groups(int G, const void* feats, const void* proj,
-                  const void* depth, void* out, int B, int V, int H, int W,
-                  int D, cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch<T, C, 1>(feats, proj, depth, out, B, V, H, W, D, stream);
-    case 2: return launch<T, C, 2>(feats, proj, depth, out, B, V, H, W, D, stream);
-    case 4: return launch<T, C, 4>(feats, proj, depth, out, B, V, H, W, D, stream);
-    case 8: return launch<T, C, 8>(feats, proj, depth, out, B, V, H, W, D, stream);
-    default: return kUnsupported;
-  }
-}
-
-template <typename T>
-int launch_channels(int C, int G, const void* feats, const void* proj,
-                    const void* depth, void* out, int B, int V, int H, int W,
-                    int D, cudaStream_t stream) {
-  switch (C) {
-    case 8: return launch_groups<T, 8>(G, feats, proj, depth, out, B, V, H, W, D, stream);
-    case 16: return launch_groups<T, 16>(G, feats, proj, depth, out, B, V, H, W, D, stream);
-    case 32: return launch_groups<T, 32>(G, feats, proj, depth, out, B, V, H, W, D, stream);
-    default: return kUnsupported;
-  }
-}
-
 }  // namespace
 
 // feats (B, V, H, W, C) of dtype (0: float32, 1: bfloat16), contiguous and
@@ -270,19 +136,15 @@ extern "C" int cost_volume_fwd(const void* feats, const void* proj,
                                int H, int W, int D, int C, int G, int dtype,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_channels<float>(C, G, feats, proj, depth, out, B, V, H, W,
-                                  D, st);
-  }
-  if (dtype == 1) {
-    return launch_channels<__nv_bfloat16>(C, G, feats, proj, depth, out, B,
-                                          V, H, W, D, st);
-  }
-  return kUnsupported;
+  return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(c)::value, decltype(g)::value>(
+        feats, proj, depth, out, B, V, H, W, D, st);
+  });
 }
 
 extern "C" const char* cost_volume_error_string(int code) {
-  if (code == kUnsupported) return "unsupported (dtype, C, groups)";
-  if (code == kBadShape) return "shape exceeds the launch grid";
+  if (code == cv::kUnsupported) return "unsupported (dtype, C, groups)";
+  if (code == cv::kBadShape) return "shape exceeds the launch grid";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -8,9 +8,11 @@ levels 1 and 0 recentre a narrower window on the x2-upsampled previous depth
 (gradient-stopped). The per-level lists ``n_depths`` and ``interval_ratios``
 are indexed fine -> coarse.
 
-Precision: the features, cost volumes and convolutions run in the dtype of
-the parameters (bf16 on the card); projections, softmax, depth regression
-and confidence run in float32.
+Precision: the features, cost volumes and convolutions run in the compute
+dtype: the parameters' dtype for inference (``entry.py`` casts the model
+to bf16 on the card), or ``torch.autocast``'s in training, where the
+parameters and BatchNorm statistics stay float32 (``engine/trainer.py``).
+Projections, softmax, depth regression and confidence run in float32.
 """
 from __future__ import annotations
 

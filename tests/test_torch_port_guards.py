@@ -1,9 +1,12 @@
 """Cheap guards on the port: no JAX inside it, no CPU fallback on the card
-path, and its main path runs end to end on the CPU at a small size."""
+path, and its main paths (inference and a train step) run end to end on
+the CPU at a small size without launching a kernel."""
+import math
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,3 +50,36 @@ def test_entry_runs_on_cpu_at_small_size():
     assert 0 <= conf.min() and conf.max() <= 1
     # the two samples are the same scene: the batch axis must not mix them
     torch.testing.assert_close(depth[0], depth[1])
+
+
+def test_train_entry_steps_on_cpu_without_kernels():
+    from casmvsnet_pl_tpu_torch.entry import train_entry
+    from casmvsnet_pl_tpu_torch.kernels import (cost_volume_bwd_cuda,
+                                                cost_volume_cuda)
+
+    trainer, state, batch = train_entry("cpu", img_wh=(64, 32),
+                                        n_depths=(8, 8, 8))
+    assert trainer.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert batch["imgs"].shape == (2, 3, 32, 64, 3)
+    launches = cost_volume_cuda.launches, cost_volume_bwd_cuda.launches
+    state, logs = trainer.train_step(state, batch)
+    assert (cost_volume_cuda.launches,
+            cost_volume_bwd_cuda.launches) == launches == (0, 0)
+    assert state.step == 1
+    assert sorted(logs) == ["lr", "train/abs_err", "train/acc_1mm",
+                            "train/acc_2mm", "train/acc_4mm", "train/loss"]
+    assert all(math.isfinite(float(v)) for v in logs.values())
+    grads = [p.grad for p in state.model.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+
+
+def test_bwd_kernel_refuses_cpu_tensors():
+    from casmvsnet_pl_tpu_torch.kernels import cost_volume_bwd_cuda
+
+    feats = torch.rand(1, 3, 8, 8, 8)
+    proj = torch.zeros(1, 2, 3, 4)
+    dv = torch.ones(1, 8, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cost_volume_bwd_cuda(feats, proj, dv, torch.zeros(1, 8, 8, 8, 8))
+    assert cost_volume_bwd_cuda.launches == 0
