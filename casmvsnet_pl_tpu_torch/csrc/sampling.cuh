@@ -1,6 +1,8 @@
 // Device helpers shared by the cost-volume kernels (cost_volume.cu, the
-// forward, and cost_volume_bwd.cu, its adjoint): dtype conversion, 16-byte
-// row loads, the plane-sweep projection and the bilinear taps.
+// forward, and cost_volume_bwd.cu, its adjoint) and the quad configuration's
+// cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu): dtype conversion,
+// 16-byte row loads and stores, the plane-sweep projection, the bilinear
+// taps and the (dtype, C, G) dispatch.
 //
 // Every product and sum that the plain PyTorch version (ops/geometry.py::
 // project_to_src, ops/grid_sample.py) rounds separately is written with an

@@ -32,7 +32,6 @@ import torch.nn as nn
 from ..data.loader import prefetch_to_device, to_device
 from ..losses import sl1_loss
 from ..metrics import abs_error_mean, acc_threshold_mean, metric_sums
-from ..ops.plane_sweep import build_cost_volume
 from ..utils.checkpoints import (TopKCheckpointManager, load_checkpoint,
                                  save_checkpoint)
 from ..utils.optimizers import (Lookahead, OptimConfig, make_lr_schedule,
@@ -57,12 +56,12 @@ def model_batch_args(batch: dict) -> tuple:
 
 class MVSTrainer:
     def __init__(self, model: nn.Module, optim_cfg: OptimConfig,
-                 steps_per_epoch: int, device="cpu",
+                 steps_per_epoch: int, device="cuda",
                  dtype: torch.dtype = torch.float32,
                  ckpt_dir: str | None = None, log_dir: str | None = None,
                  levels: int = 3, monitor: str = "val/acc_2mm",
                  top_k: int = 5,
-                 cost_volume: Callable = build_cost_volume):
+                 cost_volume: Callable | None = None):
         self.model = model
         self.cfg = optim_cfg
         self.steps_per_epoch = steps_per_epoch

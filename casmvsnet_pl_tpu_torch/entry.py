@@ -5,8 +5,10 @@ inference forward. ``train_entry`` is the counterpart of
 ``scripts/profile_train_step.py``: a trainer, its state and a batch at the
 reference training protocol (B=2, Adam, lr 1e-3). Both build
 ``CascadeMVSNet`` at its default config (n_depths 8/32/48, interval ratios
-1/2/4, variance cost volume) on synthetic plane scenes at 640x512 with 3
-views, with weights drawn from a seeded ``torch.Generator``.
+1/2/4, variance cost volume, sampling "auto") on synthetic plane scenes at
+640x512 with 3 views, with weights drawn from a seeded ``torch.Generator``;
+``sampling`` and ``num_groups`` pick another configuration of the model, as
+``train.py``'s and ``eval.py``'s ``--sampling`` and ``--num_groups`` do.
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ from .data.loader import collate
 from .data.synthetic import PlaneScene
 from .engine.trainer import MVSTrainer
 from .models import CascadeMVSNet
-from .ops.plane_sweep import build_cost_volume
 from .utils.optimizers import OptimConfig
 
 DEPTH_MIN = 425.0
@@ -51,24 +52,26 @@ def make_inputs(batch: int, img_wh=(640, 512), n_views: int = 3,
     return imgs, proj
 
 
-def entry(device, dtype: torch.dtype | None = None, batch: int = 1,
-          img_wh=(640, 512), seed: int = 0):
+def entry(device="cuda", dtype: torch.dtype | None = None, batch: int = 1,
+          img_wh=(640, 512), seed: int = 0, sampling: str = "auto",
+          num_groups: int = 1):
     """(fn, args): ``fn(*args)`` runs the inference forward and returns
     ``(depth_0 (B, H, W), confidence_2 (B, H/4, W/4))``.
 
     ``dtype`` is the compute dtype of features and convolutions: bf16 on a
     CUDA device and f32 on the CPU unless given. ``fn`` takes an optional
-    ``cost_volume`` in place of :func:`build_cost_volume`.
+    ``cost_volume`` in place of the model's own (``build_cost_volume`` with
+    its ``sampling``).
     """
     device = torch.device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = CascadeMVSNet()
+    model = CascadeMVSNet(num_groups=num_groups, sampling=sampling)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dtype).eval()
     imgs, proj_mats = make_inputs(batch, img_wh, device=device)
 
-    def fn(model, imgs, proj_mats, cost_volume=build_cost_volume):
+    def fn(model, imgs, proj_mats, cost_volume=None):
         with torch.inference_mode():
             out = model(imgs, proj_mats, DEPTH_MIN, DEPTH_INTERVAL,
                         cost_volume=cost_volume)
@@ -95,11 +98,12 @@ def plane_sample(i: int, img_wh=(640, 512)) -> dict:
             "masks": {k: np.ones(v[0].shape, bool) for k, v in depths.items()}}
 
 
-def train_entry(device, dtype: torch.dtype | None = None, batch: int = 2,
-                img_wh=(640, 512), optimizer: str = "adam", seed: int = 0,
-                n_depths=(8, 32, 48), lr: float = 1e-3,
+def train_entry(device="cuda", dtype: torch.dtype | None = None,
+                batch: int = 2, img_wh=(640, 512), optimizer: str = "adam",
+                seed: int = 0, n_depths=(8, 32, 48), lr: float = 1e-3,
                 steps_per_epoch: int = 100, optim_kwargs: dict | None = None,
-                cost_volume=build_cost_volume, **trainer_kwargs):
+                cost_volume=None, sampling: str = "auto",
+                num_groups: int = 1, **trainer_kwargs):
     """(trainer, state, batch): ``trainer.train_step(state, batch)`` runs one
     training step of ``CascadeMVSNet`` on ``batch`` plane scenes
     (:func:`plane_sample` 0..batch-1, already on the device).
@@ -107,13 +111,15 @@ def train_entry(device, dtype: torch.dtype | None = None, batch: int = 2,
     ``dtype`` is the compute dtype (bf16 on a CUDA device and f32 on the
     CPU unless given); parameters stay float32. The optimizer is
     ``OptimConfig(optimizer, lr, **optim_kwargs)``. ``cost_volume``
-    replaces :func:`build_cost_volume`; other keyword arguments go to
-    :class:`MVSTrainer` (``ckpt_dir``, ``log_dir``, ...).
+    replaces the model's own (``build_cost_volume`` with ``sampling``);
+    other keyword arguments go to :class:`MVSTrainer` (``ckpt_dir``,
+    ``log_dir``, ...).
     """
     device = torch.device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = CascadeMVSNet(n_depths=n_depths)
+    model = CascadeMVSNet(n_depths=n_depths, num_groups=num_groups,
+                          sampling=sampling)
     init_weights(model, torch.Generator().manual_seed(seed))
     cfg = OptimConfig(optimizer=optimizer, lr=lr, **(optim_kwargs or {}))
     trainer = MVSTrainer(model, cfg, steps_per_epoch, device=device,

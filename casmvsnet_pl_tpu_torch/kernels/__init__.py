@@ -1,2 +1,5 @@
 """Hand-written CUDA kernels for Hopper, built from ``csrc/`` at first use."""
+from .cost_epilogue import (groupwise_epilogue_bwd_cuda,  # noqa: F401
+                            groupwise_epilogue_cuda, variance_epilogue_bwd_cuda,
+                            variance_epilogue_cuda)
 from .cost_volume import cost_volume_bwd_cuda, cost_volume_cuda  # noqa: F401

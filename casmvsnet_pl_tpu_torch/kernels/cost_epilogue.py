@@ -1,0 +1,148 @@
+"""Launch the quad configuration's CUDA cost epilogues.
+
+Four wrappers, each with its own launch count, over two kernels of the
+shared library that ``kernels/cost_volume.py`` builds from ``csrc/``:
+
+- ``variance_epilogue_cuda`` and ``groupwise_epilogue_cuda``,
+  ``csrc/cost_epilogue.cu``: TPU kernels #3 and #5,
+  ``scripts/kernel_cost_epilogue.py::variance_epilogue`` and
+  ``groupwise_epilogue``;
+- ``variance_epilogue_bwd_cuda`` and ``groupwise_epilogue_bwd_cuda``,
+  ``csrc/cost_epilogue_bwd.cu``: TPU kernels #4 and #6, ``_var_vjp_bwd``
+  and ``_gw_vjp_bwd``.
+
+Plain versions: ``ops/cost_epilogue.py``. The wrappers are raw launches
+that record no autograd graph; ``ops/plane_sweep.py::quad_cost_volume``
+joins them into a ``torch.autograd.Function``. There is no fallback: on a
+CUDA tensor a wrapper launches its kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cost_volume import _CHANNELS, _DTYPE_CODES, _GROUPS, _LIBRARY, _Kernel
+
+Tensor = torch.Tensor
+
+
+def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
+                  groups: int, grad: Tensor | None = None) -> None:
+    """Raise on anything the kernels do not take (shapes as in
+    :meth:`EpilogueKernel.__call__`)."""
+    tensors = (ref, rows, ws) + (() if grad is None else (grad,))
+    if not all(t.is_cuda and t.device == ref.device for t in tensors):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} records no autograd graph; differentiate "
+                         "through ops.plane_sweep.quad_cost_volume")
+    if ref.ndim != 3:
+        raise ValueError(f"ref must be (B, HW, C), got {tuple(ref.shape)}")
+    B, hw, C = ref.shape
+    if ref.dtype not in _DTYPE_CODES:
+        raise ValueError(f"ref dtype {ref.dtype} not in {list(_DTYPE_CODES)}")
+    if C not in _CHANNELS:
+        raise ValueError(f"C={C} not in {_CHANNELS}")
+    if groups not in _GROUPS or C % groups:
+        raise ValueError(f"groups={groups} not in {_GROUPS} or does not "
+                         f"divide C={C}")
+    if rows.ndim != 5 or rows.shape[0] != B or rows.shape[1] < 1 \
+            or rows.shape[3:] != (hw, 4 * C) or rows.dtype != ref.dtype:
+        raise ValueError(f"rows must be {ref.dtype} (B, S, D, {hw}, {4 * C}) "
+                         f"with S >= 1, got {rows.dtype} {tuple(rows.shape)}")
+    S, D = rows.shape[1:3]
+    if ws.shape != (B, S, D, hw, 4) or ws.dtype != torch.float32:
+        raise ValueError(f"ws must be f32 {(B, S, D, hw, 4)}, got "
+                         f"{ws.dtype} {tuple(ws.shape)}")
+    if grad is not None:
+        want = (B, D, hw, C if groups == 1 else groups)
+        if tuple(grad.shape) != want or grad.dtype != ref.dtype:
+            raise ValueError(f"grad must be {ref.dtype} {want}, got "
+                             f"{grad.dtype} {tuple(grad.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every tensor must be 16-byte aligned")
+
+
+class _Epilogue(_Kernel):
+    """A cost epilogue kernel: the variance one (groups == 1 only) or the
+    groupwise one (groups > 1 only)."""
+
+    def __init__(self, library, name: str, groupwise: bool):
+        super().__init__(library)
+        self.name = name
+        self.groupwise = groupwise
+
+    def _check_groups(self, groups: int) -> None:
+        if (groups != 1) != self.groupwise:
+            raise ValueError(f"{self.name} takes groups "
+                             f"{'> 1' if self.groupwise else '1'}, got "
+                             f"{groups}")
+
+
+class EpilogueKernel(_Epilogue):
+    """TPU kernel #3 (variance) or #5 (groupwise), ``csrc/cost_epilogue.cu``."""
+
+    def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor,
+                 groups: int = 1) -> Tensor:
+        """ref (B, HW, C) f32|bf16, C in {8, 16, 32}; rows (B, S, D, HW,
+        4C) gathered quad rows of the S source views, in ref's dtype; ws
+        (B, S, D, HW, 4) f32 tap weights. Returns (B, D, HW, C) (variance)
+        or (B, D, HW, G) in ref's dtype, with no autograd graph."""
+        self._check_groups(groups)
+        _check_inputs(self.name, ref, rows, ws, groups)
+        B, hw, C = ref.shape
+        S, D = rows.shape[1:3]
+        out = torch.empty((B, D, hw, C if groups == 1 else groups),
+                          dtype=ref.dtype, device=ref.device)
+        lib = self.build()
+        with torch.cuda.device(ref.device):
+            err = lib.cost_epilogue_fwd(
+                ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), B, S, D, hw, C, groups,
+                _DTYPE_CODES[ref.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        self.library.check(err, self.name)
+        self.launches += 1
+        return out
+
+
+class EpilogueBwdKernel(_Epilogue):
+    """TPU kernel #4 (variance) or #6 (groupwise), the VJP of
+    :class:`EpilogueKernel`, ``csrc/cost_epilogue_bwd.cu``."""
+
+    def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor, grad: Tensor,
+                 groups: int = 1) -> tuple[Tensor, Tensor, Tensor]:
+        """Inputs as :meth:`EpilogueKernel.__call__`, plus grad, the
+        gradient of its output in ref's dtype. Returns (d ref (B, HW, C)
+        f32, d rows in the rows' dtype, d ws f32), each element written
+        once (no atomics: the same result from run to run)."""
+        self._check_groups(groups)
+        _check_inputs(self.name, ref, rows, ws, groups, grad)
+        B, hw, C = ref.shape
+        S, D = rows.shape[1:3]
+        d_ref = torch.empty(ref.shape, dtype=torch.float32,
+                            device=ref.device)
+        d_rows = torch.empty_like(rows)
+        d_ws = torch.empty_like(ws)
+        lib = self.build()
+        with torch.cuda.device(ref.device):
+            err = lib.cost_epilogue_bwd(
+                ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                grad.data_ptr(), d_ref.data_ptr(), d_rows.data_ptr(),
+                d_ws.data_ptr(), B, S, D, hw, C, groups,
+                _DTYPE_CODES[ref.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        self.library.check(err, self.name)
+        self.launches += 1
+        return d_ref, d_rows, d_ws
+
+
+variance_epilogue_cuda = EpilogueKernel(_LIBRARY, "variance_epilogue_cuda",
+                                        groupwise=False)
+groupwise_epilogue_cuda = EpilogueKernel(_LIBRARY, "groupwise_epilogue_cuda",
+                                         groupwise=True)
+variance_epilogue_bwd_cuda = EpilogueBwdKernel(
+    _LIBRARY, "variance_epilogue_bwd_cuda", groupwise=False)
+groupwise_epilogue_bwd_cuda = EpilogueBwdKernel(
+    _LIBRARY, "groupwise_epilogue_bwd_cuda", groupwise=True)

@@ -1,6 +1,8 @@
 """Build, bind and launch the fused CUDA cost-volume kernels.
 
-Two kernels, one shared library:
+One shared library holds every kernel of ``csrc/``: the two here, and the
+quad configuration's cost epilogues, launched from
+``kernels/cost_epilogue.py``.
 
 - K1, ``csrc/cost_volume.cu``: the forward. It replaces the TPU package's
   Pallas patch epilogue (``casmvsnet_pl_tpu/kernels/patch_epilogue.py::
@@ -97,6 +99,14 @@ class KernelLibrary:
                                         + [ctypes.c_int] * 8
                                         + [ctypes.c_void_p])
         lib.cost_volume_bwd.restype = ctypes.c_int
+        lib.cost_epilogue_fwd.argtypes = ([ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p])
+        lib.cost_epilogue_fwd.restype = ctypes.c_int
+        lib.cost_epilogue_bwd.argtypes = ([ctypes.c_void_p] * 7
+                                          + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p])
+        lib.cost_epilogue_bwd.restype = ctypes.c_int
         lib.cost_volume_error_string.argtypes = [ctypes.c_int]
         lib.cost_volume_error_string.restype = ctypes.c_char_p
         self._lib = lib

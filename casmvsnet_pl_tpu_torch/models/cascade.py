@@ -6,7 +6,10 @@ groupwise correlation), a 3D U-Net, a softmax over depth, soft-argmax depth
 and a 4-bin confidence. Level 2 sweeps uniformly from ``init_depth_min``;
 levels 1 and 0 recentre a narrower window on the x2-upsampled previous depth
 (gradient-stopped). The per-level lists ``n_depths`` and ``interval_ratios``
-are indexed fine -> coarse.
+are indexed fine -> coarse. ``sampling`` picks each level's cost-volume
+route (``ops/plane_sweep.py::build_cost_volume``): "auto" (the fused K1/K2
+kernels) or "quad" (packed-quad rows and the cost epilogue kernels), as the
+JAX model's ``sampling`` field.
 
 Precision: the features, cost volumes and convolutions run in the compute
 dtype: the parameters' dtype for inference (``entry.py`` casts the model
@@ -16,6 +19,7 @@ Projections, softmax, depth regression and confidence run in float32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Sequence
 
 import torch
@@ -49,7 +53,7 @@ def _sum4_confidence(prob: Tensor, depth_values_len: int) -> Tensor:
 class CascadeMVSNet(nn.Module):
     def __init__(self, n_depths: Sequence[int] = (8, 32, 48),
                  interval_ratios: Sequence[float] = (1.0, 2.0, 4.0),
-                 num_groups: int = 1):
+                 num_groups: int = 1, sampling: str = "auto"):
         super().__init__()
         levels = len(FEATURE_CHANNELS)
         if len(n_depths) != levels or len(interval_ratios) != levels:
@@ -62,6 +66,7 @@ class CascadeMVSNet(nn.Module):
         self.n_depths = tuple(int(d) for d in n_depths)
         self.interval_ratios = tuple(float(r) for r in interval_ratios)
         self.num_groups = num_groups
+        self.sampling = sampling
         self.levels = levels
         self.feature = FeatureNet()
         for l in range(levels):
@@ -77,15 +82,19 @@ class CascadeMVSNet(nn.Module):
 
     def from_features(self, feats: dict[str, Tensor], proj_mats: Tensor,
                       init_depth_min, depth_interval,
-                      cost_volume: Callable = build_cost_volume
+                      cost_volume: Callable | None = None
                       ) -> dict[str, Tensor]:
         """The cascade after feature extraction.
 
         proj_mats: (B, V-1, levels, 3, 4) f32; init_depth_min and
-        depth_interval: scalars or (B,). ``cost_volume`` builds each level's
-        volume; it is :func:`build_cost_volume` except where a caller
-        compares it with the plain version.
+        depth_interval: scalars or (B,). ``cost_volume(feats, proj_mats,
+        depth_values, groups)`` builds each level's volume; None means
+        :func:`build_cost_volume` with the model's ``sampling``. A caller
+        passes another only to compare it with a plain version.
         """
+        if cost_volume is None:
+            cost_volume = functools.partial(build_cost_volume,
+                                            sampling=self.sampling)
         B = proj_mats.shape[0]
         dev = proj_mats.device
         dmin = torch.as_tensor(init_depth_min, dtype=torch.float32,
@@ -117,7 +126,7 @@ class CascadeMVSNet(nn.Module):
         return results
 
     def forward(self, imgs: Tensor, proj_mats: Tensor, init_depth_min,
-                depth_interval, cost_volume: Callable = build_cost_volume
+                depth_interval, cost_volume: Callable | None = None
                 ) -> dict[str, Tensor]:
         """imgs: (B, V, H, W, 3) normalized images; proj_mats:
         (B, V-1, levels, 3, 4), level index fine -> coarse.

@@ -13,6 +13,7 @@ cost-volume kernels (``csrc/sampling.cuh``), whose plain version this is;
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -73,3 +74,69 @@ def grid_sample_batched_adjoint(grad: Tensor, xy: Tensor, height: int,
 def grid_sample(feat: Tensor, xy: Tensor) -> Tensor:
     """feat (H, W, C); xy (..., 2) -> (..., C) in float32."""
     return grid_sample_batched(feat[None], xy[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# Packed-quad tables: the sampler of the quad configuration
+# (``CascadeMVSNet(sampling="quad")``). One gathered row of 4C channels holds
+# a sample's whole 2x2 bilinear support; the cost epilogue
+# (``ops/cost_epilogue.py``) reduces it with the four tap weights.
+# ---------------------------------------------------------------------------
+
+def pack_quad(feat: Tensor) -> Tensor:
+    """(..., H, W, C) -> (..., H+1, W+1, 4C) packed 2x2 bilinear supports.
+
+    Counterpart of ``casmvsnet_pl_tpu/ops/grid_sample.py::pack_quad``.
+    Entry [yq, xq] holds the taps of floor coordinates (y0, x0) =
+    (yq-1, xq-1) in the order (y0x0, y0x1, y1x0, y1x1): one zero guard row
+    and column before the map (floor -1) and two after (floor H-1 needs
+    row H, and far coordinates clamp onto the guard), so out-of-image taps
+    read zeros.
+    """
+    H, W = feat.shape[-3:-1]
+    p = F.pad(feat, (0, 0, 1, 2, 1, 2))
+    return torch.cat([p[..., :H + 1, :W + 1, :], p[..., :H + 1, 1:W + 2, :],
+                      p[..., 1:H + 2, :W + 1, :], p[..., 1:H + 2, 1:W + 2, :]],
+                     dim=-1)
+
+
+def pack_quad_adjoint(grad: Tensor) -> Tensor:
+    """The adjoint of :func:`pack_quad`: (..., H+1, W+1, 4C) -> (..., H, W,
+    C), the sum over the four tap blocks of each block's shifted slice
+    (the guard cells drop out)."""
+    Hq, Wq, C4 = grad.shape[-3:]
+    H, W, C = Hq - 1, Wq - 1, C4 // 4
+    return (grad[..., 1:, 1:, :C] + grad[..., 1:, :W, C:2 * C]
+            + grad[..., :H, 1:, 2 * C:3 * C] + grad[..., :H, :W, 3 * C:])
+
+
+def quad_weights(xy: Tensor, height: int, width: int):
+    """Tap weights and clamped quad-cell indices for :func:`pack_quad`.
+
+    Counterpart of ``casmvsnet_pl_tpu/ops/grid_sample.py::quad_weights``.
+    xy (..., 2) pixel coordinates -> (w4 (..., 4) float32 in pack_quad's
+    tap order, zero for a tap outside the image; y0i, x0i int64, the
+    floor coordinates + 1 clamped into [0, H] x [0, W]). A far coordinate
+    clamps onto a guard cell and carries zero weights, so it never aliases
+    onto a real texel. The clamp is taken on the float coordinate, so
+    coordinates beyond the integer range saturate (and NaN goes to 0).
+    """
+    x, y = xy[..., 0].float(), xy[..., 1].float()
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx1 = x - x0
+    wy1 = y - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+    v_x0 = (x0 >= 0) & (x0 < width)
+    v_x1 = (x0 + 1 >= 0) & (x0 + 1 < width)
+    v_y0 = (y0 >= 0) & (y0 < height)
+    v_y1 = (y0 + 1 >= 0) & (y0 + 1 < height)
+    zero = torch.zeros_like(x)
+    w4 = torch.stack([torch.where(v_y0 & v_x0, wy0 * wx0, zero),
+                      torch.where(v_y0 & v_x1, wy0 * wx1, zero),
+                      torch.where(v_y1 & v_x0, wy1 * wx0, zero),
+                      torch.where(v_y1 & v_x1, wy1 * wx1, zero)], dim=-1)
+    x0i = torch.clamp(torch.nan_to_num(x0 + 1), 0, width).long()
+    y0i = torch.clamp(torch.nan_to_num(y0 + 1), 0, height).long()
+    return w4, y0i, x0i

@@ -10,20 +10,29 @@ and autograd differentiates it; :func:`plain_cost_volume_bwd` is K2's plain
 version, written out.
 
 Gradients reach the features only: the projected coordinates are detached,
-as the JAX package's ``_patch_view`` stops them, so ``proj_mats`` and
-``depth_values`` get none.
+as the JAX package's ``_patch_view`` and ``_quad_view`` stop them, so
+``proj_mats`` and ``depth_values`` get none.
 
-The TPU package's sampler tables (quad, block, window, patch) and the
-group-fit fallback chain exist because the TPU gather engine charges per
-row; neither path here needs them.
+The quad configuration (``sampling="quad"``, ``CascadeMVSNet(sampling=
+"quad")``) has a route of its own, :func:`quad_cost_volume`, the
+counterpart of the JAX packed-quad sampler: pack each source view into a
+``pack_quad`` table, gather one (4C)-wide row per (pixel, depth, view) and
+reduce the rows in the cost epilogue (``ops/cost_epilogue.py``, TPU kernels
+#3-#6). The TPU package's other sampler tables (block, window, patch) and
+the group-fit fallback chain exist because the TPU gather engine charges
+per row; the default path here needs none of them.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.cost_volume import cost_volume_bwd_cuda, cost_volume_cuda
+from .cost_epilogue import (groupwise_epilogue, groupwise_epilogue_bwd,
+                            plain_groupwise_epilogue, plain_variance_epilogue,
+                            variance_epilogue, variance_epilogue_bwd)
 from .geometry import project_to_src
-from .grid_sample import grid_sample_batched, grid_sample_batched_adjoint
+from .grid_sample import (grid_sample_batched, grid_sample_batched_adjoint,
+                          pack_quad, pack_quad_adjoint, quad_weights)
 
 Tensor = torch.Tensor
 
@@ -136,11 +145,118 @@ class _CostVolume(torch.autograd.Function):
         return d_feats, None, None, None
 
 
+def quad_rows(feats: Tensor, proj_mats: Tensor, depth_values: Tensor
+              ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The cost epilogue's inputs in the quad configuration.
+
+    Counterpart of the JAX ``_quad_view`` / ``_quad_sample`` forward up to
+    its ``_tap_reduce``: project (coordinates detached), ``quad_weights``,
+    and one row gather from the ``pack_quad`` tables of the source views.
+    Shapes as in :func:`plain_cost_volume`. Returns ref (B, hw, C); rows
+    (B, S, D, hw, 4C) in the features' dtype, S = V-1; ws (B, S, D, hw, 4)
+    float32; and idx (B*S*D*hw,) int64, each row's index in the tables
+    flattened to (B*S*(H+1)*(W+1), 4C).
+    """
+    B, V, H, W, C = feats.shape
+    S, D = V - 1, depth_values.shape[1]
+    Hq, Wq = H + 1, W + 1
+    xy = project_to_src(proj_mats, depth_values[:, None], H, W).detach()
+    w4, y0i, x0i = quad_weights(xy, H, W)                 # (B, S, D, H, W)
+    base = torch.arange(B * S, device=feats.device).reshape(B, S, 1, 1, 1)
+    idx = (base * (Hq * Wq) + y0i * Wq + x0i).reshape(-1)
+    tables = pack_quad(feats[:, 1:]).reshape(B * S * Hq * Wq, 4 * C)
+    rows = tables.index_select(0, idx).reshape(B, S, D, H * W, 4 * C)
+    ref = feats[:, 0].reshape(B, H * W, C).contiguous()
+    return ref, rows, w4.reshape(B, S, D, H * W, 4).contiguous(), idx
+
+
+def plain_quad_cost_volume(feats: Tensor, proj_mats: Tensor,
+                           depth_values: Tensor, groups: int = 1) -> Tensor:
+    """The quad route in plain PyTorch, differentiated by autograd (its
+    gather's backward included): :func:`quad_rows`, then the plain cost
+    epilogue. Shapes and result as :func:`plain_cost_volume`."""
+    B, V, H, W, C = feats.shape
+    ref, rows, ws, _ = quad_rows(feats, proj_mats, depth_values)
+    if groups == 1:
+        out = plain_variance_epilogue(ref, rows, ws)
+    else:
+        out = plain_groupwise_epilogue(ref, rows, ws, groups)
+    return out.reshape(B, depth_values.shape[1], H, W, -1)
+
+
+class _QuadCostVolume(torch.autograd.Function):
+    """The quad route: TPU kernel #3 (variance) or #5 (groupwise) forward,
+    #4 or #6 backward, through the dispatchers of ``ops/cost_epilogue.py``
+    (the CUDA kernels for a CUDA tensor, the plain versions for a CPU one).
+
+    It saves (ref, rows, ws) as the JAX epilogue's VJP does, and the row
+    indices for the scatter. The backward adds each view's d rows into a
+    float32 table gradient with ``index_add_``, as ``_quad_sample_bwd``
+    scatters in float32, takes the adjoint of ``pack_quad`` and casts once.
+    The epilogue's d ws is dropped: the weights come from detached
+    coordinates.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, proj_mats, depth_values, groups):
+        B, V, H, W, C = feats.shape
+        ref, rows, ws, idx = quad_rows(feats, proj_mats, depth_values)
+        ctx.save_for_backward(ref, rows, ws, idx)
+        ctx.groups = groups
+        ctx.shape = feats.shape
+        if groups == 1:
+            out = variance_epilogue(ref, rows, ws)
+        else:
+            out = groupwise_epilogue(ref, rows, ws, groups)
+        return out.reshape(B, depth_values.shape[1], H, W, -1)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ref, rows, ws, idx = ctx.saved_tensors
+        B, V, H, W, C = ctx.shape
+        S, D = rows.shape[1:3]
+        g = grad_out.to(ref.dtype).reshape(B, D, H * W, -1).contiguous()
+        if ctx.groups == 1:
+            d_ref, d_rows, _ = variance_epilogue_bwd(ref, rows, ws, g)
+        else:
+            d_ref, d_rows, _ = groupwise_epilogue_bwd(ref, rows, ws, g,
+                                                      ctx.groups)
+        table = torch.zeros((B * S * (H + 1) * (W + 1), 4 * C),
+                            dtype=torch.float32, device=ref.device)
+        idx = idx.reshape(B, S, -1)
+        for v in range(S):                  # one view's f32 rows at a time
+            table.index_add_(0, idx[:, v].reshape(-1),
+                             d_rows[:, v].reshape(-1, 4 * C).float())
+        d_src = pack_quad_adjoint(table.reshape(B, S, H + 1, W + 1, 4 * C))
+        d_feats = torch.cat([d_ref.reshape(B, 1, H, W, C), d_src], dim=1)
+        return d_feats.to(ref.dtype), None, None, None
+
+
+def quad_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
+                     groups: int = 1) -> Tensor:
+    """Differentiable cost volume of the quad configuration (see
+    :class:`_QuadCostVolume`). Shapes and result as
+    :func:`plain_cost_volume`."""
+    return _QuadCostVolume.apply(feats, proj_mats, depth_values, groups)
+
+
 def build_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
-                      groups: int = 1) -> Tensor:
-    """Differentiable cost volume: the CUDA kernels (K1 forward, K2
-    backward) for a CUDA tensor, the plain version under autograd for a CPU
-    tensor. Shapes as in :func:`plain_cost_volume`."""
+                      groups: int = 1, sampling: str = "auto") -> Tensor:
+    """Differentiable cost volume. Shapes as in :func:`plain_cost_volume`.
+
+    sampling "auto" or "patch": the CUDA kernels (K1 forward, K2 backward)
+    for a CUDA tensor, the plain version under autograd for a CPU tensor;
+    exact bilinear, as the JAX patch path is. "quad": :func:`quad_cost_volume`.
+    "window" is not ported (ROADMAP Queue 1 item 15) and raises.
+    """
+    if sampling == "quad":
+        return quad_cost_volume(feats, proj_mats, depth_values, groups)
+    if sampling == "window":
+        raise NotImplementedError(
+            "sampling='window' is not ported to casmvsnet_pl_tpu_torch yet "
+            "(ROADMAP Queue 1 item 15); use 'auto', 'patch' or 'quad'")
+    if sampling not in ("auto", "patch"):
+        raise ValueError(f"unknown sampling mode {sampling!r}")
     if feats.is_cuda:
         return _CostVolume.apply(feats, proj_mats, depth_values, groups)
     return plain_cost_volume(feats, proj_mats, depth_values, groups)

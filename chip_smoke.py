@@ -5,18 +5,18 @@
 Phases, each of which raises on failure (exit code != 0):
   1. require a CUDA device (there is no CPU path);
   2. print the toolchain: torch, CUDA, the card, nvidia-smi, nvcc, triton;
-  3. build the cost-volume kernel from casmvsnet_pl_tpu_torch/csrc/;
-  4. hold the kernel against its plain PyTorch version at the three cascade
-     level shapes (B=1), in f32 (<= 1e-4 abs) and bf16 (<= 1 bf16 ulp of
-     the plain f32 result), for variance and groupwise (G=8);
+  3. build the kernels from casmvsnet_pl_tpu_torch/csrc/ (one nvcc call);
+  4. hold the cost-volume kernel (K1) against its plain PyTorch version at
+     the three cascade level shapes (B=1), in f32 (<= 1e-4 abs) and bf16
+     (<= 1 bf16 ulp of the plain f32 result), for variance and groupwise
+     (G=8);
   5. run the inference forward through ``entry``: f32 with the kernel
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
-     bf16 main path, counting exactly one kernel launch per level;
-  6. time bf16 forwards at B=1 and B=4 and the kernel against the plain
-     version per level, with CUDA events;
-  7. (below, after phase 11) print the kernels' JSON line (launches per
-     main path; what each time covers), then {"ok": true, "device": ...}
-     last;
+     bf16 main path, counting exactly one K1 launch per level;
+  6. time bf16 forwards at B=1 and B=4 with CUDA events;
+  7. (below, after phase 19) print the kernels' JSON line (launches per
+     main path; what each time covers; bounds), then {"ok": true,
+     "device": ...} last;
   8. hold the backward kernel (K2) against its plain PyTorch version at the
      three level shapes at B=2, variance and groupwise (G=8), f32
      (<= 1e-5 abs + 1e-5 rel) and bf16 (<= 2 bf16 ulps of the rounded plain
@@ -32,8 +32,39 @@ Phases, each of which raises on failure (exit code != 0):
  10. the training main path at full width: bf16, 640x512x3, B=2, Adam
      lr 1e-3, 20 steps on one batch, counting 3 K1 + 3 K2 launches a step;
      every loss finite and the last below the first;
- 11. time the bf16 train step (stages, step, samples/s, peak memory) and
-     K2 against the plain backward per level, with CUDA events.
+ 11. time the bf16 train step (stages, step, samples/s, peak memory) with
+     CUDA events.
+
+The quad configuration (``sampling="quad"``: packed-quad rows reduced by
+the cost epilogue kernels, TPU kernels #3-#6):
+ 12. hold #3 (variance) and #5 (groupwise, G=8) against their plain
+     versions on the rows and weights that ``quad_rows`` builds from the
+     plane scene, at the three level shapes (B=1): f32 <= 1e-5 abs, bf16
+     <= 1 bf16 ulp of the plain f32 result;
+ 13. hold #4 and #6 against theirs at B=2 on d ref, d rows and d ws: f32
+     <= 1e-5 abs + 1e-5 rel, bf16 <= 2 bf16 ulps of the rounded plain
+     result + 1e-5;
+ 14. the f32 quad inference forward through ``entry(sampling="quad")``
+     against the default path (< 0.05 mm on depth_0), then the bf16 quad
+     forward: 3 #3 launches and no K1;
+ 15. one f32 SGD step through ``train_entry(sampling="quad")`` with the
+     kernels and one with the plain quad route (autograd through
+     ``plain_quad_cost_volume``), as phase 9: 3 #3 + 3 #4 launches and no
+     K1/K2;
+ 16. 10 bf16 Adam steps with sampling="quad" at 640x512x3, B=2, as phase
+     10;
+ 17. the groupwise (G=8) quad configuration: one bf16 forward (3 #5) and
+     two bf16 Adam steps (3 #5 + 3 #6 a step);
+ 18. time the bf16 quad forward (B=1, 4) and train step, then every
+     kernel (K1, K2, #3-#6) against its plain version per level, in turns
+     plain/kernel/kernel/plain, each beside its bound;
+ 19. profile the bf16 forward (B=1) and train step of the default and the
+     quad configurations: device time by kernel name (``torch.profiler``).
+
+Every kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and the float32 operations of
+the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
+counted from this run's shapes.
 """
 from __future__ import annotations
 
@@ -57,6 +88,21 @@ DEPTH_TOL_MM = 0.05     # tests/test_torch_parity.py
 BWD_TOL = 1e-5
 GRAD_REL_TOL = 1e-3     # train step, every gradient leaf, relative L2
 TRAIN_STEPS = 20
+# #3-#6 write every element once, with no atomics: f32 agrees with the
+# plain versions to the order of their sums
+EPI_TOL = 1e-5
+QUAD_TRAIN_STEPS = 10
+G8_TRAIN_STEPS = 2
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
+F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
+
+# kernel launches of one forward and of one train step, per configuration
+DEFAULT_FWD = {"cost_volume_cuda": 3}
+DEFAULT_STEP = {"cost_volume_cuda": 3, "cost_volume_bwd_cuda": 3}
+QUAD_FWD = {"variance_epilogue_cuda": 3}
+QUAD_STEP = {"variance_epilogue_cuda": 3, "variance_epilogue_bwd_cuda": 3}
+G8_FWD = {"groupwise_epilogue_cuda": 3}
+G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3}
 
 
 def levels():
@@ -137,6 +183,35 @@ def bf16_ulp(x):
     return torch.where(x == 0, torch.full_like(ulp, 2.0 ** -133), ulp)
 
 
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port by name."""
+    from casmvsnet_pl_tpu_torch import kernels as k
+    return {n: getattr(k, n) for n in (
+        "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
+        "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
+        "groupwise_epilogue_bwd_cuda")}
+
+
+def reset_counts() -> None:
+    for kernel in all_kernels().values():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: k.launches for n, k in all_kernels().items()}
+
+
+def expect_counts(counts: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly as ``want`` says (0 where unnamed)."""
+    full = {n: want.get(n, 0) for n in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def scaled(want: dict, n: int) -> dict:
+    return {name: count * n for name, count in want.items()}
+
+
 def check_kernel(kernel, plain, inputs) -> float:
     """Kernel vs plain at every level shape; returns the max f32 abs error."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -167,23 +242,61 @@ def check_kernel(kernel, plain, inputs) -> float:
     return worst
 
 
-def check_forward(kernel, entry, plain) -> int:
-    """f32 kernel vs plain forward, then the bf16 main path; returns the
-    kernel launches counted over the main path's run."""
-    fn, args = entry(DEVICE, torch.float32, img_wh=IMG_WH)
+def check_outputs(depth, conf, batch: int) -> None:
+    W, H = IMG_WH
+    if tuple(depth.shape) != (batch, H, W) or tuple(conf.shape) != (
+            batch, H // 4, W // 4):
+        raise AssertionError("wrong output shapes")
+    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
+        raise AssertionError("non-finite outputs")
+    if not (conf.min() >= 0 and conf.max() <= 1):
+        raise AssertionError("confidence outside [0, 1]")
+
+
+def sharpened_f32_forward(entry, sampling: str = "auto"):
+    """(fn, args) of the f32 forward, with the softmax over depth sharpened
+    so that depth_0 follows the cost volume."""
+    fn, args = entry(DEVICE, torch.float32, img_wh=IMG_WH, sampling=sampling)
     with torch.no_grad():
-        # sharpen the softmax over depth, so depth_0 follows the cost volume
         for l in range(3):
             getattr(args[0], f"cost_reg_{l}").prob.weight *= 30.0
-    kernel.launches = 0
-    d_k, c_k = fn(*args)
+    return fn, args
+
+
+def counted(run, want: dict, what: str):
+    """``run()`` between a reset and a read of the launch counts, which must
+    be ``want``; returns its result."""
+    reset_counts()
+    out = run()
     torch.cuda.synchronize()
-    if kernel.launches != 3:
-        raise AssertionError(f"f32 forward launched {kernel.launches}, not 3")
-    d_p, c_p = fn(*args, cost_volume=plain)
+    expect_counts(read_counts(), want, what)
+    return out
+
+
+def forward_main_path(entry, want: dict, label: str, **kw) -> dict:
+    """One bf16 forward at B=1 through ``entry(**kw)``: its outputs checked
+    and its launches exactly ``want``; returns the launches."""
+    fn, args = entry(DEVICE, torch.bfloat16, img_wh=IMG_WH, **kw)
+    reset_counts()
+    depth, conf = fn(*args)
     torch.cuda.synchronize()
-    if kernel.launches != 3:
-        raise AssertionError("the plain forward launched the kernel")
+    counts = read_counts()
+    print(f"forward bf16{label} main path: launches {counts}, depth_0 "
+          f"{tuple(depth.shape)} range [{depth.min().item()!r}, "
+          f"{depth.max().item()!r}], confidence_2 {tuple(conf.shape)} range "
+          f"[{conf.min().item()!r}, {conf.max().item()!r}]")
+    expect_counts(counts, want, f"bf16 forward{label}")
+    check_outputs(depth, conf, 1)
+    return counts
+
+
+def check_forward(entry, plain) -> dict:
+    """f32 kernel vs plain forward, then the bf16 main path; returns the
+    launches counted over the main path's run."""
+    fn, args = sharpened_f32_forward(entry)
+    d_k, c_k = counted(lambda: fn(*args), DEFAULT_FWD, "f32 forward")
+    d_p, c_p = counted(lambda: fn(*args, cost_volume=plain), {},
+                       "f32 plain forward")
     dd = (d_k - d_p).abs().max().item()
     dc = (c_k - c_p).abs().max().item()
     print(f"forward f32 kernel vs plain: max|d depth_0|={dd!r} mm "
@@ -192,27 +305,26 @@ def check_forward(kernel, entry, plain) -> int:
     if not dd < DEPTH_TOL_MM:
         raise AssertionError(f"f32 depth_0 kernel vs plain {dd} mm")
     del fn, args
+    return forward_main_path(entry, DEFAULT_FWD, "")
 
-    fn, args = entry(DEVICE, torch.bfloat16, img_wh=IMG_WH)
-    kernel.launches = 0
-    depth, conf = fn(*args)
-    torch.cuda.synchronize()
-    launches = kernel.launches
-    print(f"forward bf16 main path: kernel launches={launches}, "
-          f"depth_0 {tuple(depth.shape)} range [{depth.min().item()!r}, "
-          f"{depth.max().item()!r}], confidence_2 {tuple(conf.shape)} range "
-          f"[{conf.min().item()!r}, {conf.max().item()!r}]")
-    if launches != 3:
-        raise AssertionError(f"bf16 forward launched {launches}, not 3")
-    W, H = IMG_WH
-    if tuple(depth.shape) != (1, H, W) or tuple(conf.shape) != (1, H // 4,
-                                                                W // 4):
-        raise AssertionError("wrong output shapes")
-    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
-        raise AssertionError("non-finite outputs")
-    if not (conf.min() >= 0 and conf.max() <= 1):
-        raise AssertionError("confidence outside [0, 1]")
-    return launches
+
+def check_quad_forward(entry) -> dict:
+    """The f32 quad forward against the default path, then the bf16 quad
+    main path; returns the latter's launches."""
+    outs = {}
+    for sampling, want in (("auto", DEFAULT_FWD), ("quad", QUAD_FWD)):
+        fn, args = sharpened_f32_forward(entry, sampling)
+        outs[sampling] = counted(lambda: fn(*args), want,
+                                 f"f32 forward sampling={sampling}")
+        del fn, args
+    dd = (outs["quad"][0] - outs["auto"][0]).abs().max().item()
+    dc = (outs["quad"][1] - outs["auto"][1]).abs().max().item()
+    print(f"forward f32 sampling=quad vs default: max|d depth_0|={dd!r} mm "
+          f"(bound {DEPTH_TOL_MM}), max|d confidence_2|={dc!r}")
+    if not dd < DEPTH_TOL_MM:
+        raise AssertionError(f"f32 quad depth_0 vs default {dd} mm")
+    return forward_main_path(entry, QUAD_FWD, " sampling=quad",
+                             sampling="quad")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -228,37 +340,66 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_all(kernel, entry, plain, inputs, card) -> tuple[float, float]:
-    """Forward times at B=1 and 4, then kernel and plain per level (bf16,
-    variance, B=1, in turns plain/kernel/kernel/plain); returns the sums of
-    the per-level kernel and plain times."""
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the float32 operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def combine_ops(S: int, C: int, groups: int) -> int:
+    """float32 operations of the variance or groupwise combine per (b, d,
+    pixel): per view 3C (variance: s, o^2, sq) or 2C (groupwise), then 4C
+    (variance) or C (groupwise) to finish."""
+    return 3 * C * S + 4 * C if groups == 1 else 2 * C * S + C
+
+
+def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
+    """(bytes, float32 operations) of K1, or of K2 with ``backward``, at one
+    level: features, projections and depths read once, the volume (K1) or
+    its gradient (K2) read or written once, and K2's float32 feature
+    gradient written once. Per sample and source view: 29 operations of
+    projection and tap weights and 8C of taps. The backward's own work is
+    those samples once (K2 computes them twice) and 8C for the scatter."""
+    S, n = V - 1, B * D * h * w
+    nbytes = (B * V * h * w * C * itemsize + B * S * 12 * 4 + n * 4
+              + n * (C if groups == 1 else groups) * itemsize)
+    per = S * (29 + 8 * C) + combine_ops(S, C, groups)
+    if not backward:
+        return nbytes, n * per
+    return nbytes + B * V * h * w * C * 4, n * (per + 8 * C * S)
+
+
+def epilogue_work(B, S, D, hw, C, groups, itemsize, backward=False):
+    """(bytes, float32 operations) of #3/#5, or of #4/#6 with ``backward``:
+    ref, rows and weights read once and the volume written once; the
+    backward also reads the volume's gradient and writes d ref (f32), d
+    rows and d ws (f32) once. Per (b, d, pixel): 8C per view for the taps;
+    the backward's own work is those taps once (#4/#6 compute them twice)
+    and 12C per view for d rows and d ws."""
+    n = B * D * hw
+    cout = C if groups == 1 else groups
+    nbytes = (B * hw * C * itemsize + n * S * 4 * C * itemsize + n * S * 16
+              + n * cout * itemsize)
+    per = 8 * C * S + combine_ops(S, C, groups)
+    if not backward:
+        return nbytes, n * per
+    nbytes += B * hw * C * 4 + n * S * 4 * C * itemsize + n * S * 16
+    return nbytes, n * (per + 12 * C * S)
+
+
+def time_forward(entry, card, label: str = "", **kw) -> None:
+    """bf16 inference forward at B=1 and 4."""
     for batch in (1, 4):
-        fn, args = entry(DEVICE, torch.bfloat16, batch=batch, img_wh=IMG_WH)
+        fn, args = entry(DEVICE, torch.bfloat16, batch=batch, img_wh=IMG_WH,
+                         **kw)
         fn(*args)
         ms = cuda_ms(lambda: fn(*args), 10)
-        print(f"timing forward bf16 B={batch} {IMG_WH[0]}x{IMG_WH[1]}x3: "
-              f"{ms!r} ms/forward, "
+        print(f"timing forward{label} bf16 B={batch} {IMG_WH[0]}x"
+              f"{IMG_WH[1]}x3: {ms!r} ms/forward, "
               f"{batch * 1000.0 / ms!r} maps/s [{card}]")
         del fn, args
-    g = torch.Generator(device=DEVICE).manual_seed(1)
-    k_sum = p_sum = 0.0
-    for l, C, D, h, w in levels():
-        proj, dv = inputs[l]
-        fb = torch.rand((1, 3, h, w, C), generator=g,
-                        device=DEVICE).to(torch.bfloat16)
-        p1 = cuda_ms(lambda: plain(fb, proj, dv), 5)
-        k1 = cuda_ms(lambda: kernel(fb, proj, dv), 50)
-        k2 = cuda_ms(lambda: kernel(fb, proj, dv), 50)
-        p2 = cuda_ms(lambda: plain(fb, proj, dv), 5)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        out_mb = D * h * w * C * 2 / 1e6
-        print(f"timing cost volume L{l} bf16 (1,{D},{h},{w},{C}): kernel "
-              f"{k_ms!r} ms ({k1!r}, {k2!r}), plain {p_ms!r} ms ({p1!r}, "
-              f"{p2!r}), output write {out_mb!r} MB -> "
-              f"{out_mb / 1e3 / k_ms!r} TB/s [{card}]")
-        k_sum += k_ms
-        p_sum += p_ms
-    return k_sum, p_sum
 
 
 def check_bwd(kernel_bwd, plain_bwd, inputs2) -> float:
@@ -314,27 +455,26 @@ def check_bwd(kernel_bwd, plain_bwd, inputs2) -> float:
     return worst
 
 
-def check_train_step(kernels, train_entry, plain) -> None:
-    """f32 SGD step with the kernels against one with the plain cost volume,
-    from the same state and batch."""
-    kernel, kernel_bwd = kernels
+def check_train_step(train_entry, plain, want: dict,
+                     sampling: str = "auto") -> None:
+    """f32 SGD step with the kernels against one with ``plain`` as the cost
+    volume, from the same state and batch; the kernel step launches
+    exactly ``want``, the plain step nothing."""
     runs = {}
     # cuDNN's default conv backward sums in a run-dependent order, which
     # moves some leaves by ~4e-3 between two identical plain steps; its
     # deterministic algorithms leave the cost volume as the only difference.
     torch.backends.cudnn.deterministic = True
     for name, cv in (("kernel", None), ("plain", plain)):
-        kw = {} if cv is None else {"cost_volume": cv}
         trainer, state, batch = train_entry(
             DEVICE, torch.float32, img_wh=IMG_WH, optimizer="sgd", lr=1e-2,
-            **kw)
-        kernel.launches = kernel_bwd.launches = 0
+            cost_volume=cv, sampling=sampling)
+        reset_counts()
         state, logs = trainer.train_step(state, batch)
         torch.cuda.synchronize()
         runs[name] = (float(logs["train/loss"]),
                       {n: p.grad.double() for n, p in
-                       state.model.named_parameters()},
-                      (kernel.launches, kernel_bwd.launches))
+                       state.model.named_parameters()}, read_counts())
         del trainer, state, batch
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
@@ -347,44 +487,43 @@ def check_train_step(kernels, train_entry, plain) -> None:
         return gp[n.replace("prob.bias", "prob.weight")].norm()
 
     worst = max(((gk[n] - gp[n]).norm() / scale(n)).item() for n in gp)
-    print(f"train step f32 kernel vs plain: loss {lk!r} vs {lp!r}, "
-          f"worst gradient leaf relative L2 {worst!r} (bound "
-          f"{GRAD_REL_TOL}), launches K1/K2 kernel step {nk}, plain step "
-          f"{npl}")
-    if nk != (3, 3) or npl != (0, 0):
-        raise AssertionError(f"launches {nk} / {npl}, not (3, 3) / (0, 0)")
+    print(f"train step f32 sampling={sampling} kernel vs plain: loss {lk!r} "
+          f"vs {lp!r}, worst gradient leaf relative L2 {worst!r} (bound "
+          f"{GRAD_REL_TOL}), launches kernel step {nk}, plain step {npl}")
+    expect_counts(nk, want, f"sampling={sampling} kernel step")
+    expect_counts(npl, {}, f"sampling={sampling} plain step")
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         raise AssertionError(f"loss {lk} vs {lp}")
     if not worst <= GRAD_REL_TOL:
         raise AssertionError(f"gradient leaf relative error {worst}")
 
 
-def train_main_path(kernels, train_entry, card):
-    """bf16 Adam at full width on one batch; returns (trainer, state,
-    batch, launches of K1 and K2 over the run)."""
-    kernel, kernel_bwd = kernels
-    trainer, state, batch = train_entry(DEVICE, img_wh=IMG_WH)
-    kernel.launches = kernel_bwd.launches = 0
+def train_main_path(train_entry, card, steps: int, want_per_step: dict,
+                    **kw):
+    """bf16 Adam at full width on one batch through ``train_entry(**kw)``;
+    every loss finite, the last below the first, and the launches exactly
+    ``want_per_step`` a step. Returns (trainer, state, batch, launches)."""
+    trainer, state, batch = train_entry(DEVICE, img_wh=IMG_WH, **kw)
+    reset_counts()
     losses = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, logs = trainer.train_step(state, batch)
         losses.append(float(logs["train/loss"]))
     torch.cuda.synchronize()
-    launches = (kernel.launches, kernel_bwd.launches)
+    counts = read_counts()
     W, H = IMG_WH
-    print(f"train bf16 {W}x{H}x3 B=2 adam lr 1e-3, {TRAIN_STEPS} steps on "
-          f"one batch: losses {losses!r}; launches K1/K2 {launches} "
-          f"[{card}]")
-    if launches != (3 * TRAIN_STEPS, 3 * TRAIN_STEPS):
-        raise AssertionError(f"launches {launches}, not 3 per step each")
+    label = "".join(f" {k}={v}" for k, v in kw.items())
+    print(f"train bf16{label} {W}x{H}x3 B=2 adam lr 1e-3, {steps} steps on "
+          f"one batch: losses {losses!r}; launches {counts} [{card}]")
+    expect_counts(counts, scaled(want_per_step, steps), f"train{label}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite training loss")
     if not losses[-1] < losses[0]:
         raise AssertionError("training loss did not fall")
-    return trainer, state, batch, launches
+    return trainer, state, batch, counts
 
 
-def time_train(trainer, state, batch, card) -> None:
+def time_train(trainer, state, batch, card, label: str = "") -> None:
     """bf16 train step: stage times, whole step, peak memory."""
     from casmvsnet_pl_tpu_torch.engine import model_batch_args
     from casmvsnet_pl_tpu_torch.losses import sl1_loss
@@ -409,36 +548,249 @@ def time_train(trainer, state, batch, card) -> None:
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: trainer.train_step(state, batch), 10)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"timing train step bf16 B=2 {IMG_WH[0]}x{IMG_WH[1]}x3 adam: "
+    print(f"timing train step{label} bf16 B=2 {IMG_WH[0]}x{IMG_WH[1]}x3 adam: "
           f"{ms!r} ms/step, {2 * 1000.0 / ms!r} samples/s, peak memory "
           f"{peak!r} GiB; stages (mean of 5): forward+loss {fwd!r} ms, "
           f"backward {bwd!r} ms, optimizer {upd!r} ms [{card}]")
 
 
-def time_bwd(kernel_bwd, plain_bwd, inputs2, card) -> tuple[float, float]:
-    """K2 against the plain backward per level (bf16, variance, B=2, in
-    turns plain/kernel/kernel/plain); returns the sums over the levels."""
-    g = torch.Generator(device=DEVICE).manual_seed(3)
-    k_sum = p_sum = 0.0
+# --- the quad configuration: TPU kernels #3-#6 ------------------------------
+
+def epilogues():
+    """{groups: (kernel, plain, kernel bwd, plain bwd)} for variance (#3/#4)
+    and groupwise G=8 (#5/#6); every function takes (..., groups)."""
+    from casmvsnet_pl_tpu_torch import kernels as k
+    from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
+    return {
+        1: (k.variance_epilogue_cuda,
+            lambda r, rows, ws, G: ce.plain_variance_epilogue(r, rows, ws),
+            k.variance_epilogue_bwd_cuda,
+            lambda r, rows, ws, g, G: ce.plain_variance_epilogue_bwd(
+                r, rows, ws, g)),
+        8: (k.groupwise_epilogue_cuda, ce.plain_groupwise_epilogue,
+            k.groupwise_epilogue_bwd_cuda, ce.plain_groupwise_epilogue_bwd)}
+
+
+def quad_level_rows(inputs, batch: int, seed: int):
+    """Per level: (ref, rows, ws) that ``quad_rows`` builds from random
+    features (B, 3, h, w, C) in [0, 1) on the plane scene's rig."""
+    from casmvsnet_pl_tpu_torch.ops import quad_rows
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     for l, C, D, h, w in levels():
+        proj, dv = inputs[l]
+        feats = torch.rand((batch, 3, h, w, C), generator=g, device=DEVICE)
+        yield (l, C, D, h, w), quad_rows(feats, proj, dv)[:3]
+
+
+def check_epilogues(inputs) -> dict:
+    """#3 and #5 against their plain versions at every level shape, B=1;
+    returns the max f32 abs error by kernel name."""
+    worst = {}
+    for (l, C, D, h, w), (ref, rows, ws) in quad_level_rows(inputs, 1, 4):
+        rb, rowsb = ref.to(torch.bfloat16), rows.to(torch.bfloat16)
+        for groups, (kernel, plain, _, _) in epilogues().items():
+            k32 = kernel(ref, rows, ws, groups)
+            err = (k32 - plain(ref, rows, ws, groups)).abs().max().item()
+            worst[kernel.name] = max(worst.get(kernel.name, 0.0), err)
+            kb = kernel(rb, rowsb, ws, groups)
+            pf = plain(rb.float(), rowsb.float(), ws, groups)
+            ulps = ((kb.float() - pf).abs() / bf16_ulp(pf)).max().item()
+            print(f"epilogue-check L{l} {kernel.name} rows="
+                  f"{tuple(rows.shape)} out={tuple(k32.shape)} f32 "
+                  f"max_abs_err={err!r} (bound {EPI_TOL}) bf16 max_ulps="
+                  f"{ulps!r} (bound 1)")
+            if not err <= EPI_TOL:
+                raise AssertionError(f"L{l} {kernel.name} f32 error {err}")
+            if not ulps <= 1.0:
+                raise AssertionError(f"L{l} {kernel.name} bf16 {ulps} ulp")
+        del ref, rows, ws, rb, rowsb
+    return worst
+
+
+def check_epilogues_bwd(inputs2) -> dict:
+    """#4 and #6 against their plain versions at every level shape, B=2, on
+    d ref, d rows and d ws; returns the max f32 abs error by kernel name."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    worst = {}
+    for (l, C, D, h, w), (ref, rows, ws) in quad_level_rows(inputs2, 2, 6):
+        rb, rowsb = ref.to(torch.bfloat16), rows.to(torch.bfloat16)
+        for groups, (_, _, kernel, plain) in epilogues().items():
+            go = torch.randn((2, D, h * w, C if groups == 1 else groups),
+                             generator=g, device=DEVICE)
+            got = kernel(ref, rows, ws, go, groups)
+            want = plain(ref, rows, ws, go, groups)
+            errs, over = [], []
+            for a, b in zip(got, want):
+                e = (a - b).abs()
+                errs.append(e.max().item())
+                if not bool((e <= EPI_TOL + EPI_TOL * b.abs()).all()):
+                    raise AssertionError(f"L{l} {kernel.name} f32 error")
+            del got, want
+            gb = go.to(torch.bfloat16)
+            got = kernel(rb, rowsb, ws, gb, groups)
+            want = plain(rb.float(), rowsb.float(), ws, gb.float(), groups)
+            for a, b in zip(got, want):
+                b = b.to(a.dtype).float()
+                e = (a.float() - b).abs()
+                over.append((e > 2 * bf16_ulp(b) + EPI_TOL).sum().item())
+            del got, want
+            worst[kernel.name] = max([worst.get(kernel.name, 0.0)] + errs)
+            print(f"epilogue-bwd-check L{l} {kernel.name} rows="
+                  f"{tuple(rows.shape)} f32 max_abs_err d ref/d rows/d ws="
+                  f"{errs!r} (bound {EPI_TOL} + {EPI_TOL} rel) bf16 elements "
+                  f"over 2 ulps + {EPI_TOL}: {over}")
+            if any(over):
+                raise AssertionError(f"L{l} {kernel.name} bf16 error")
+        del ref, rows, ws, rb, rowsb
+    return worst
+
+
+# --- kernel timing ----------------------------------------------------------
+
+def time_level(sums: dict, name: str, label: str, run_k, run_p, iters,
+               work, card, note: str = "") -> None:
+    """Time a kernel against its plain version on one level's inputs, in
+    turns plain/kernel/kernel/plain (``iters`` = calls per turn, kernel and
+    plain), print both beside the bound of ``work`` = (bytes, float32
+    operations), and add the times and the work into ``sums[name]``."""
+    k_iters, p_iters = iters
+    p1 = cuda_ms(run_p, p_iters)
+    k1 = cuda_ms(run_k, k_iters)
+    k2 = cuda_ms(run_k, k_iters)
+    p2 = cuda_ms(run_p, p_iters)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    nbytes, flops = work
+    b_ms, by = bound(nbytes, flops)
+    print(f"timing {name} {label}: kernel {k_ms!r} ms ({k1!r}, {k2!r}), "
+          f"plain {p_ms!r} ms ({p1!r}, {p2!r}); {note}bound {b_ms!r} ms by "
+          f"{by} ({nbytes / 1e6!r} MB, {flops / 1e9!r} GFLOP) -> "
+          f"{nbytes / 1e9 / k_ms!r} TB/s, {100 * b_ms / k_ms!r} % of bound "
+          f"[{card}]")
+    acc = sums.get(name, (0.0, 0.0, 0.0, 0.0))
+    sums[name] = tuple(a + b for a, b in zip(acc, (k_ms, p_ms, nbytes,
+                                                    flops)))
+
+
+def time_kernels(inputs, inputs2, card) -> dict:
+    """Every kernel against its plain version per level, bf16: K1 and #3/#5
+    at B=1, K2 and #4/#6 at B=2 (K1/K2 variance, the epilogues variance and
+    G=8). Returns by wrapper name the sums over the levels of the kernel
+    and plain times, and the bound of the summed work with what sets it."""
+    from casmvsnet_pl_tpu_torch import kernels as k
+    from casmvsnet_pl_tpu_torch.ops import (plain_cost_volume,
+                                            plain_cost_volume_bwd)
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    sums = {}
+    for l, C, D, h, w in levels():
+        proj, dv = inputs[l]
+        fb = torch.rand((1, 3, h, w, C), generator=g,
+                        device=DEVICE).to(torch.bfloat16)
+        out_mb = D * h * w * C * 2 / 1e6
+        time_level(sums, "cost_volume_cuda", f"L{l} bf16 (1,{D},{h},{w},{C})",
+                   lambda: k.cost_volume_cuda(fb, proj, dv),
+                   lambda: plain_cost_volume(fb, proj, dv), (50, 5),
+                   cv_work(1, 3, D, h, w, C, 1, 2), card,
+                   f"output write {out_mb!r} MB; ")
         proj, dv = inputs2[l]
         fb = torch.rand((2, 3, h, w, C), generator=g,
                         device=DEVICE).to(torch.bfloat16)
         gb = torch.randn((2, D, h, w, C), generator=g,
                          device=DEVICE).to(torch.bfloat16)
-        p1 = cuda_ms(lambda: plain_bwd(fb, proj, dv, gb), 3)
-        k1 = cuda_ms(lambda: kernel_bwd(fb, proj, dv, gb), 20)
-        k2 = cuda_ms(lambda: kernel_bwd(fb, proj, dv, gb), 20)
-        p2 = cuda_ms(lambda: plain_bwd(fb, proj, dv, gb), 3)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         atomics = 2 * D * h * w * 2 * 4 * C
-        print(f"timing cost volume bwd L{l} bf16 feats (2,3,{h},{w},{C}) "
-              f"D={D}: kernel {k_ms!r} ms ({k1!r}, {k2!r}), plain {p_ms!r} "
-              f"ms ({p1!r}, {p2!r}), {atomics / 1e9!r} G f32 atomics -> "
-              f"{atomics / 1e6 / k_ms!r} G atomics/s [{card}]")
-        k_sum += k_ms
-        p_sum += p_ms
-    return k_sum, p_sum
+        time_level(sums, "cost_volume_bwd_cuda",
+                   f"L{l} bf16 feats (2,3,{h},{w},{C}) D={D}",
+                   lambda: k.cost_volume_bwd_cuda(fb, proj, dv, gb),
+                   lambda: plain_cost_volume_bwd(fb, proj, dv, gb), (20, 3),
+                   cv_work(2, 3, D, h, w, C, 1, 2, backward=True), card,
+                   f"{atomics / 1e9!r} G f32 atomics; ")
+    for batch, data in ((1, inputs), (2, inputs2)):
+        backward = batch == 2
+        for (l, C, D, h, w), (ref, rows, ws) in quad_level_rows(data, batch,
+                                                                8 + batch):
+            rb, rowsb = ref.to(torch.bfloat16), rows.to(torch.bfloat16)
+            del ref, rows
+            S = rowsb.shape[1]
+            for groups, (kf, pf, kb, pb) in epilogues().items():
+                if backward:
+                    go = torch.randn((batch, D, h * w,
+                                      C if groups == 1 else groups),
+                                     generator=g, device=DEVICE).to(
+                                         torch.bfloat16)
+                    kernel, plain, args = kb, pb, (rb, rowsb, ws, go, groups)
+                else:
+                    kernel, plain, args = kf, pf, (rb, rowsb, ws, groups)
+                time_level(sums, kernel.name,
+                           f"L{l} bf16 rows {tuple(rowsb.shape)}",
+                           lambda: kernel(*args), lambda: plain(*args),
+                           (20, 3), epilogue_work(batch, S, D, h * w, C,
+                                                  groups, 2, backward), card)
+            del rb, rowsb, ws
+    return {name: (k_ms, p_ms, *bound(nbytes, flops))
+            for name, (k_ms, p_ms, nbytes, flops) in sums.items()}
+
+
+def profile(fn, label: str, card, iters: int = 3) -> None:
+    """Device time per call of ``fn`` by kernel name over ``iters`` calls
+    (``torch.profiler``, after one warm-up call), the 12 largest and the
+    rest, and the busy share: summed kernel time over the wall time of the
+    calls with the profiler on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key[:100]
+        ms, n = times.get(name, (0.0, 0))
+        times[name] = (ms + us / 1e3 / iters, n + e.count // iters)
+    total = sum(ms for ms, _ in times.values())
+    print(f"profile{label}: wall {wall!r} ms per call (profiler on), kernel "
+          f"time {total!r} ms, busy {100 * total / wall!r} %, "
+          f"{len(times)} kernel names [{card}]")
+    ranked = sorted(times.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in ranked[:12]:
+        print(f"  {ms!r} ms {100 * ms / max(total, 1e-9)!r} % x{n} {name}")
+    rest = sum(ms for _, (ms, _) in ranked[12:])
+    print(f"  {rest!r} ms in the other {max(len(ranked) - 12, 0)} names")
+
+
+def profile_paths(entry, train_entry, card) -> None:
+    """Phase 19: the default and quad bf16 forward (B=1) and train step."""
+    for sampling in ("auto", "quad"):
+        fn, args = entry(DEVICE, img_wh=IMG_WH, sampling=sampling)
+        profile(lambda: fn(*args), f" forward bf16 B=1 sampling={sampling}",
+                card)
+        del fn, args
+        trainer, state, batch = train_entry(DEVICE, img_wh=IMG_WH,
+                                            sampling=sampling)
+        profile(lambda: trainer.train_step(state, batch),
+                f" train step bf16 B=2 sampling={sampling}", card)
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+
+
+def kernel_line(name, source, replaces, launches_by_path, main_path,
+                max_err, times, timed) -> dict:
+    """One entry of the kernels' JSON line; ``launches`` is the count of
+    the ``main_path`` run."""
+    k_ms, p_ms, b_ms, by = times
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_by_path[main_path],
+            "launches_by_path": launches_by_path, "max_abs_err": max_err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "timed": timed}
 
 
 def main() -> int:
@@ -451,41 +803,84 @@ def main() -> int:
     from casmvsnet_pl_tpu_torch.kernels import cost_volume_cuda as kernel
     from casmvsnet_pl_tpu_torch.ops import plain_cost_volume as plain
     from casmvsnet_pl_tpu_torch.ops import plain_cost_volume_bwd as pbwd
+    from casmvsnet_pl_tpu_torch.ops import plain_quad_cost_volume
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = toolchain()
     build_kernel(kernel)
     inputs = level_inputs()
-    max_err = check_kernel(kernel, plain, inputs)
-    launches = check_forward(kernel, entry, plain)
-    k_ms, p_ms = time_all(kernel, entry, plain, inputs, card)
     inputs2 = level_inputs(batch=2)
-    bwd_err = check_bwd(kbwd, pbwd, inputs2)
-    check_train_step((kernel, kbwd), train_entry, plain)
-    trainer, state, batch, (n_fwd, n_bwd) = train_main_path(
-        (kernel, kbwd), train_entry, card)
+    errs = {"cost_volume_cuda": check_kernel(kernel, plain, inputs)}
+    paths = {"inference": check_forward(entry, plain)}
+    time_forward(entry, card)
+    errs["cost_volume_bwd_cuda"] = check_bwd(kbwd, pbwd, inputs2)
+    check_train_step(train_entry, plain, DEFAULT_STEP)
+    trainer, state, batch, paths["train"] = train_main_path(
+        train_entry, card, TRAIN_STEPS, DEFAULT_STEP)
     time_train(trainer, state, batch, card)
     del trainer, state, batch
-    kb_ms, pb_ms = time_bwd(kbwd, pbwd, inputs2, card)
-    print(f"inference main path: K1 launches {launches}; training main "
-          f"path: K1 {n_fwd}, K2 {n_bwd}")
-    # "launches" is the training main path's count; "launches_by_path"
-    # gives each path's own run, and "timed" says what ms/plain_ms time.
-    print(json.dumps({"kernels": [{
-        "name": "cost_volume", "route": "cuda",
-        "source": "casmvsnet_pl_tpu_torch/csrc/cost_volume.cu",
-        "replaces": "casmvsnet_pl_tpu/kernels/patch_epilogue.py:134",
-        "launches": n_fwd,
-        "launches_by_path": {"inference": launches, "train": n_fwd},
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "timed": "bf16 variance B=1, sum over the 3 level shapes"}, {
-        "name": "cost_volume_bwd", "route": "cuda",
-        "source": "casmvsnet_pl_tpu_torch/csrc/cost_volume_bwd.cu",
-        "replaces": "casmvsnet_pl_tpu/kernels/patch_epilogue.py:172",
-        "launches": n_bwd, "launches_by_path": {"train": n_bwd},
-        "max_abs_err": bwd_err, "ms": kb_ms, "plain_ms": pb_ms,
-        "timed": "bf16 variance B=2, sum over the 3 level shapes"}]}))
+    torch.cuda.empty_cache()
+
+    errs.update(check_epilogues(inputs))
+    errs.update(check_epilogues_bwd(inputs2))
+    paths["quad_inference"] = check_quad_forward(entry)
+    check_train_step(train_entry, plain_quad_cost_volume, QUAD_STEP,
+                     sampling="quad")
+    trainer, state, batch, paths["quad_train"] = train_main_path(
+        train_entry, card, QUAD_TRAIN_STEPS, QUAD_STEP, sampling="quad")
+    time_train(trainer, state, batch, card, label=" sampling=quad")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    g8 = {"sampling": "quad", "num_groups": 8}
+    paths["quad_g8_inference"] = forward_main_path(
+        entry, G8_FWD, " sampling=quad num_groups=8", **g8)
+    *_, paths["quad_g8_train"] = train_main_path(
+        train_entry, card, G8_TRAIN_STEPS, G8_STEP, **g8)
+    torch.cuda.empty_cache()
+    time_forward(entry, card, label=" sampling=quad", sampling="quad")
+    kernel_times = time_kernels(inputs, inputs2, card)
+    profile_paths(entry, train_entry, card)
+
+    # "launches" is the count of the kernel's main path (the default path's
+    # training run for K1 and K2, the quad configuration's for #3-#6);
+    # "launches_by_path" gives every path's own run, and "timed" says what
+    # ms, plain_ms and bound_ms cover. No single PyTorch call computes any
+    # of these functions, so library_ms is null.
+    def by_path(name, keys):
+        return {p: paths[p].get(name, 0) for p in keys}
+
+    default_paths = ("inference", "train", "quad_inference", "quad_train")
+    g8_paths = ("quad_g8_inference", "quad_g8_train")
+    csrc = "casmvsnet_pl_tpu_torch/csrc/"
+    pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"
+    kce = "scripts/kernel_cost_epilogue.py:"
+    lines = []
+    for name, source, replaces, keys, timed in (
+            ("cost_volume", "cost_volume.cu", pe + "134", default_paths,
+             "bf16 variance B=1"),
+            ("cost_volume_bwd", "cost_volume_bwd.cu", pe + "172",
+             default_paths, "bf16 variance B=2"),
+            ("variance_epilogue", "cost_epilogue.cu", kce + "197",
+             default_paths, "bf16 variance B=1"),
+            ("variance_epilogue_bwd", "cost_epilogue_bwd.cu", kce + "224",
+             default_paths, "bf16 variance B=2"),
+            ("groupwise_epilogue", "cost_epilogue.cu", kce + "377", g8_paths,
+             "bf16 G=8 B=1"),
+            ("groupwise_epilogue_bwd", "cost_epilogue_bwd.cu", kce + "404",
+             g8_paths, "bf16 G=8 B=2")):
+        cname = name + "_cuda"
+        main_path = ("quad_g8_train" if "groupwise" in name else "quad_train"
+                     if "epilogue" in name else "train")
+        lines.append(kernel_line(
+            name, csrc + source, replaces, by_path(cname, keys), main_path,
+            errs[cname], kernel_times[cname],
+            timed + ", sum over the 3 level shapes"))
+    for entry_ in lines:
+        if entry_["launches"] < 1:
+            raise AssertionError(f"{entry_['name']} never launched on its "
+                                 "main path")
+    print(json.dumps({"kernels": lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

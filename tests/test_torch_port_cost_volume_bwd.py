@@ -80,7 +80,11 @@ def test_plain_bwd_equals_autograd_of_plain_forward(groups):
         auto, = torch.autograd.grad(plain_cost_volume(feats, proj, dv, groups),
                                     feats, cot)
         got = plain_cost_volume_bwd(feats.detach(), proj, dv, cot, groups)
-        torch.testing.assert_close(got, auto, rtol=0, atol=1e-6, msg=name)
+        # Two scatters (index_add_ here, autograd's gather backward there)
+        # add the same shares in different orders, so the two agree to a few
+        # f32 ulps of the gradient's magnitude, not to a fixed 1e-6.
+        atol = 1e-6 * max(1.0, auto.abs().max().item())
+        torch.testing.assert_close(got, auto, rtol=0, atol=atol, msg=name)
 
 
 def test_coordinates_get_no_gradient():

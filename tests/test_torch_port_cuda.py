@@ -1,5 +1,6 @@
-"""The CUDA cost-volume kernels (K1 forward, K2 backward) against their
-plain versions, on the card.
+"""The CUDA cost-volume kernels (K1 forward, K2 backward) and the quad
+configuration's cost epilogues (TPU kernels #3-#6) against their plain
+versions, on the card.
 
 Marked ``cuda``: each test skips (inside the ``cuda`` fixture, never at
 collection) where there is no CUDA device. On a machine with one:
@@ -11,10 +12,17 @@ import pytest
 import torch
 
 from casmvsnet_pl_tpu_torch.kernels import (cost_volume_bwd_cuda,
-                                            cost_volume_cuda)
+                                            cost_volume_cuda,
+                                            groupwise_epilogue_bwd_cuda,
+                                            groupwise_epilogue_cuda,
+                                            variance_epilogue_bwd_cuda,
+                                            variance_epilogue_cuda)
+from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (build_cost_volume,
                                                     plain_cost_volume,
-                                                    plain_cost_volume_bwd)
+                                                    plain_cost_volume_bwd,
+                                                    plain_quad_cost_volume,
+                                                    quad_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +160,109 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         cost_volume_cuda(feats, proj, dv, groups=3)
     with pytest.raises(ValueError, match="proj_mats"):
         cost_volume_cuda(feats, proj.double(), dv)
+
+
+def _epilogues(groups):
+    """(kernel, plain, kernel bwd, plain bwd) of #3/#4 (groups == 1) or
+    #5/#6, the plain ones taking the kernels' arguments."""
+    if groups == 1:
+        return (variance_epilogue_cuda, ce.plain_variance_epilogue,
+                variance_epilogue_bwd_cuda, ce.plain_variance_epilogue_bwd)
+    return (groupwise_epilogue_cuda,
+            lambda *a: ce.plain_groupwise_epilogue(*a, groups),
+            groupwise_epilogue_bwd_cuda,
+            lambda *a: ce.plain_groupwise_epilogue_bwd(*a, groups))
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_epilogue_kernels_match_plain(cuda, C, groups, geometry):
+    """#3/#5 and #4/#6 on the rows and weights of the quad route: f32 within
+    1e-5, bf16 within 1 ulp (forward) or 2 ulps + 1e-5 (backward) of the
+    plain f32 result on the same bf16 inputs. No atomics: the backward
+    differs from its plain version only in the order of its sums."""
+    feats, proj, dv = _scene(C, 8, **GEOMETRIES[geometry])
+    ref, rows, ws, _ = quad_rows(feats, proj, dv)
+    kernel, plain, kernel_bwd, plain_bwd = _epilogues(groups)
+    before = kernel.launches, kernel_bwd.launches
+    got = kernel(ref, rows, ws, groups)
+    torch.testing.assert_close(got, plain(ref, rows, ws), rtol=0, atol=1e-5)
+    rb, rowsb = ref.to(torch.bfloat16), rows.to(torch.bfloat16)
+    got_b = kernel(rb, rowsb, ws, groups)
+    want_b = plain(rb.float(), rowsb.float(), ws)
+    assert got_b.dtype == torch.bfloat16
+    assert bool(((got_b.float() - want_b).abs() <= bf16_ulp(want_b)).all())
+
+    g = torch.Generator(device="cuda").manual_seed(C + groups)
+    go = torch.randn(got.shape, generator=g, device="cuda")
+    grads = kernel_bwd(ref, rows, ws, go, groups)
+    assert (kernel.launches, kernel_bwd.launches) == (before[0] + 2,
+                                                      before[1] + 1)
+    for name, a, b in zip(("d ref", "d rows", "d ws"), grads,
+                          plain_bwd(ref, rows, ws, go)):
+        assert a.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, rtol=BWD_TOL, atol=BWD_TOL,
+                                   msg=name)
+    gb = go.to(torch.bfloat16)
+    grads_b = kernel_bwd(rb, rowsb, ws, gb, groups)
+    assert [a.dtype for a in grads_b] == [torch.float32, torch.bfloat16,
+                                          torch.float32]
+    for name, a, b in zip(("d ref", "d rows", "d ws"), grads_b,
+                          plain_bwd(rb.float(), rowsb.float(), ws,
+                                    gb.float())):
+        b = b.to(a.dtype).float()
+        err = (a.float() - b).abs()
+        assert bool((err <= 2 * bf16_ulp(b) + BWD_TOL).all()), name
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_quad_function_matches_plain_autograd(cuda, groups):
+    feats, proj, dv = _scene(16, 8, **GEOMETRIES["translation"])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    feats = feats.requires_grad_(True)
+    kernel, _, kernel_bwd, _ = _epilogues(groups)
+    before = (cost_volume_cuda.launches, kernel.launches, kernel_bwd.launches)
+    out = build_cost_volume(feats, proj, dv, groups, sampling="quad")
+    go = torch.randn(out.shape, generator=g, device="cuda")
+    got, = torch.autograd.grad(out, feats, go)
+    assert (cost_volume_cuda.launches, kernel.launches,
+            kernel_bwd.launches) == (before[0], before[1] + 1, before[2] + 1)
+    plain = plain_quad_cost_volume(feats, proj, dv, groups)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    ref, = torch.autograd.grad(plain, feats, go)
+    # index_add_ adds in a run-dependent order on the card: a rounding bound
+    torch.testing.assert_close(got, ref, rtol=BWD_TOL, atol=BWD_TOL)
+    fb = feats.detach().to(torch.bfloat16).requires_grad_(True)
+    out_b = build_cost_volume(fb, proj, dv, groups, sampling="quad")
+    gb, = torch.autograd.grad(out_b, fb, go.to(torch.bfloat16))
+    assert out_b.dtype == gb.dtype == torch.bfloat16
+
+
+def test_epilogue_kernels_reject_what_they_do_not_take(cuda):
+    feats, proj, dv = _scene(8, 8, **GEOMETRIES["translation"])
+    ref, rows, ws, _ = quad_rows(feats, proj, dv)
+    with pytest.raises(ValueError, match="groups"):
+        variance_epilogue_cuda(ref, rows, ws, 2)
+    with pytest.raises(ValueError, match="groups"):
+        groupwise_epilogue_cuda(ref, rows, ws, 1)
+    with pytest.raises(ValueError, match="groups"):
+        groupwise_epilogue_cuda(ref, rows, ws, 3)
+    with pytest.raises(ValueError, match="ws"):
+        variance_epilogue_cuda(ref, rows, ws.double())
+    with pytest.raises(ValueError, match="rows"):
+        variance_epilogue_cuda(ref, rows.to(torch.bfloat16), ws)
+    with pytest.raises(ValueError, match="C="):
+        variance_epilogue_cuda(ref[..., :4].contiguous(),
+                               rows[..., :16].contiguous(), ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        variance_epilogue_cuda(ref, rows, ws.transpose(2, 3).contiguous()
+                               .transpose(2, 3))
+    with pytest.raises(ValueError, match="aligned"):
+        variance_epilogue_cuda(ref, rows, torch.empty(
+            ws.numel() + 1, device="cuda")[1:].view(ws.shape))
+    go = torch.zeros(ref.shape[0], 8, ref.shape[1], 8, device="cuda")
+    with pytest.raises(ValueError, match="grad"):
+        variance_epilogue_bwd_cuda(ref, rows, ws, go.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="autograd"):
+        variance_epilogue_cuda(ref.requires_grad_(True), rows, ws)

@@ -1,6 +1,8 @@
 """Cheap guards on the port: no JAX inside it, no CPU fallback on the card
-path, and its main paths (inference and a train step) run end to end on
-the CPU at a small size without launching a kernel."""
+path, and its main paths (inference and a train step, default and quad
+configurations) run end to end on the CPU at a small size without
+launching a kernel."""
+import ast
 import math
 import os
 import subprocess
@@ -20,11 +22,35 @@ def test_package_imports_no_jax_pil_or_cv2():
         "for m in mods: __import__(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'casmvsnet_pl_tpu'))\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 25, mods\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert "casmvsnet_pl_tpu_torch.entry" in names
+    bad = [m for m in names if m.split(".")[0] in
+           ("jax", "jaxlib", "flax", "casmvsnet_pl_tpu")]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless its caller asks for the CPU."""
+    import inspect
+
+    from casmvsnet_pl_tpu_torch.engine import MVSTrainer
+    from casmvsnet_pl_tpu_torch.entry import entry, train_entry
+
+    for fn in (entry, train_entry, MVSTrainer.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -83,3 +109,65 @@ def test_bwd_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cost_volume_bwd_cuda(feats, proj, dv, torch.zeros(1, 8, 8, 8, 8))
     assert cost_volume_bwd_cuda.launches == 0
+
+
+def _all_launches():
+    from casmvsnet_pl_tpu_torch import kernels
+    return [getattr(kernels, n).launches for n in sorted(dir(kernels))
+            if n.endswith("_cuda")]
+
+
+def test_quad_entry_runs_on_cpu_without_kernels():
+    from casmvsnet_pl_tpu_torch.entry import entry
+
+    before = _all_launches()
+    assert len(before) == 6
+    fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
+    assert args[0].sampling == "quad"
+    depth, conf = fn(*args)
+    assert _all_launches() == before
+    assert depth.shape == (1, 32, 64) and conf.shape == (1, 8, 16)
+    assert torch.isfinite(depth).all() and torch.isfinite(conf).all()
+
+
+def test_quad_train_entry_steps_on_cpu_without_kernels():
+    from casmvsnet_pl_tpu_torch.entry import train_entry
+
+    trainer, state, batch = train_entry("cpu", img_wh=(64, 32),
+                                        n_depths=(8, 8, 8), sampling="quad",
+                                        num_groups=8)
+    before = _all_launches()
+    state, logs = trainer.train_step(state, batch)
+    assert _all_launches() == before
+    assert state.step == 1
+    assert all(math.isfinite(float(v)) for v in logs.values())
+    grads = [p.grad for p in state.model.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("name", ["variance_epilogue_cuda",
+                                  "groupwise_epilogue_cuda",
+                                  "variance_epilogue_bwd_cuda",
+                                  "groupwise_epilogue_bwd_cuda"])
+def test_epilogue_kernels_refuse_cpu_tensors(name):
+    from casmvsnet_pl_tpu_torch import kernels
+
+    kernel = getattr(kernels, name)
+    groups = 2 if "groupwise" in name else 1
+    ref = torch.rand(1, 8, 8)
+    rows = torch.rand(1, 2, 4, 8, 32)
+    ws = torch.rand(1, 2, 4, 8, 4)
+    args = (ref, rows, ws)
+    if "bwd" in name:
+        args += (torch.rand(1, 4, 8, 8 if groups == 1 else groups),)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*args, groups=groups)
+    assert kernel.launches == 0
+
+
+def test_window_sampling_raises():
+    from casmvsnet_pl_tpu_torch.entry import entry
+
+    fn, args = entry("cpu", img_wh=(64, 32), sampling="window")
+    with pytest.raises(NotImplementedError, match="window"):
+        fn(*args)

@@ -78,7 +78,8 @@ def test_train_step_matches_jax_trainer():
 
     model = CascadeMVSNet(n_depths=N_DEPTHS, interval_ratios=RATIOS)
     model.load_state_dict(start, strict=True)
-    trainer = MVSTrainer(model, OptimConfig(**kw), steps_per_epoch=10)
+    trainer = MVSTrainer(model, OptimConfig(**kw), steps_per_epoch=10,
+                         device="cpu")
     state = trainer.init_state()
     state, logs = trainer.train_step(state, trainer.device_batch(batch))
 
