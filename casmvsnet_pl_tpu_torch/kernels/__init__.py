@@ -3,3 +3,4 @@ from .cost_epilogue import (groupwise_epilogue_bwd_cuda,  # noqa: F401
                             groupwise_epilogue_cuda, variance_epilogue_bwd_cuda,
                             variance_epilogue_cuda)
 from .cost_volume import cost_volume_bwd_cuda, cost_volume_cuda  # noqa: F401
+from .tap_reduce import tap_reduce_bwd_cuda, tap_reduce_cuda  # noqa: F401

@@ -1,8 +1,9 @@
 """Build, bind and launch the fused CUDA cost-volume kernels.
 
-One shared library holds every kernel of ``csrc/``: the two here, and the
+One shared library holds every kernel of ``csrc/``: the two here, the
 quad configuration's cost epilogues, launched from
-``kernels/cost_epilogue.py``.
+``kernels/cost_epilogue.py``, and the weighted 4-tap reduce of the
+packed-quad sampler, launched from ``kernels/tap_reduce.py``.
 
 - K1, ``csrc/cost_volume.cu``: the forward. It replaces the TPU package's
   Pallas patch epilogue (``casmvsnet_pl_tpu/kernels/patch_epilogue.py::
@@ -107,6 +108,14 @@ class KernelLibrary:
                                           + [ctypes.c_int] * 7
                                           + [ctypes.c_void_p])
         lib.cost_epilogue_bwd.restype = ctypes.c_int
+        lib.tap_reduce_fwd.argtypes = ([ctypes.c_void_p] * 3
+                                       + [ctypes.c_int64] + [ctypes.c_int] * 2
+                                       + [ctypes.c_void_p])
+        lib.tap_reduce_fwd.restype = ctypes.c_int
+        lib.tap_reduce_bwd.argtypes = ([ctypes.c_void_p] * 5
+                                       + [ctypes.c_int64] + [ctypes.c_int] * 2
+                                       + [ctypes.c_void_p])
+        lib.tap_reduce_bwd.restype = ctypes.c_int
         lib.cost_volume_error_string.argtypes = [ctypes.c_int]
         lib.cost_volume_error_string.restype = ctypes.c_char_p
         self._lib = lib

@@ -17,7 +17,9 @@ views. ref is (B, hw, C). The tap weights stay float32, as the TPU kernel's
 
 :func:`variance_epilogue`, :func:`groupwise_epilogue` and their ``_bwd``
 counterparts take a CUDA tensor to the kernel and a CPU tensor to the plain
-version. On a CUDA tensor they launch the kernel or raise.
+version. On a CUDA tensor they launch the kernel or raise. Each view's
+4-tap reduce and its gradients are the plain versions of TPU kernels #7/#8
+(``ops/tap_reduce.py``).
 """
 from __future__ import annotations
 
@@ -27,33 +29,19 @@ from ..kernels.cost_epilogue import (groupwise_epilogue_bwd_cuda,
                                      groupwise_epilogue_cuda,
                                      variance_epilogue_bwd_cuda,
                                      variance_epilogue_cuda)
+from .tap_reduce import plain_tap_reduce, plain_tap_reduce_bwd
 
 Tensor = torch.Tensor
-
-
-def _taps(rows: Tensor, ws: Tensor, C: int) -> Tensor:
-    """(..., 4C) rows x (..., 4) f32 weights -> (..., C) f32, taps in order."""
-    r = rows.float()
-    o = r[..., :C] * ws[..., 0:1]
-    for q in range(1, 4):
-        o = o + r[..., q * C:(q + 1) * C] * ws[..., q:q + 1]
-    return o
 
 
 def _grads_of_rows(rows: Tensor, ws: Tensor, dos: list[Tensor]
                    ) -> tuple[Tensor, Tensor]:
     """d rows (in the rows' dtype) and d ws (f32) of each view's 4-tap
-    reduce, given d o_v: d rows_v[qC + c] = w_v[q] d o_v[c], d ws_v[q] =
-    sum_c rows_v[qC + c] d o_v[c]."""
-    C = rows.shape[-1] // 4
-    drows, dws = [], []
-    for v, do in enumerate(dos):
-        r = rows[:, v].float()
-        w = ws[:, v]
-        drows.append(torch.cat([do * w[..., q:q + 1] for q in range(4)], -1))
-        dws.append(torch.stack([(r[..., q * C:(q + 1) * C] * do).sum(-1)
-                                for q in range(4)], -1))
-    return (torch.stack(drows, 1).to(rows.dtype), torch.stack(dws, 1))
+    reduce, given d o_v (:func:`plain_tap_reduce_bwd` view by view)."""
+    grads = [plain_tap_reduce_bwd(rows[:, v], ws[:, v], do)
+             for v, do in enumerate(dos)]
+    return (torch.stack([d for d, _ in grads], 1),
+            torch.stack([d for _, d in grads], 1))
 
 
 def plain_variance_epilogue(ref: Tensor, rows: Tensor, ws: Tensor) -> Tensor:
@@ -65,7 +53,7 @@ def plain_variance_epilogue(ref: Tensor, rows: Tensor, ws: Tensor) -> Tensor:
     s = reff.expand(B, D, hw, C)
     sq = s * s
     for v in range(S):
-        o = _taps(rows[:, v], ws[:, v], C)
+        o = plain_tap_reduce(rows[:, v], ws[:, v])
         s = s + o
         sq = sq + o * o
     inv = 1.0 / (S + 1)         # multiplied, not divided by, as the kernel
@@ -79,10 +67,9 @@ def plain_variance_epilogue_bwd(ref: Tensor, rows: Tensor, ws: Tensor,
     o_v) / V and gs = grad 2/V: d ref = sum_d gs (ref - m), d o_v = gs (o_v
     - m). Returns (d ref (B, hw, C) f32, d rows in the rows' dtype, d ws
     f32)."""
-    B, S, D, hw, C4 = rows.shape
-    C = C4 // 4
+    S = rows.shape[1]
     reff = ref.float()[:, None]
-    os = [_taps(rows[:, v], ws[:, v], C) for v in range(S)]
+    os = [plain_tap_reduce(rows[:, v], ws[:, v]) for v in range(S)]
     s = reff
     for o in os:
         s = s + o
@@ -104,7 +91,7 @@ def plain_groupwise_epilogue(ref: Tensor, rows: Tensor, ws: Tensor,
     reff = ref.float()[:, None]
     acc = None
     for v in range(S):
-        o = _taps(rows[:, v], ws[:, v], C)
+        o = plain_tap_reduce(rows[:, v], ws[:, v])
         p = (o * reff).reshape(B, D, hw, groups, k).sum(-1)
         acc = p if acc is None else acc + p
     return (acc * (1.0 / (k * S))).to(ref.dtype)
@@ -123,7 +110,7 @@ def plain_groupwise_epilogue_bwd(ref: Tensor, rows: Tensor, ws: Tensor,
     ge = (grad.float() * (1.0 / (k * S))).repeat_interleave(k, dim=-1)
     so = None
     for v in range(S):
-        o = _taps(rows[:, v], ws[:, v], C)
+        o = plain_tap_reduce(rows[:, v], ws[:, v])
         so = o if so is None else so + o
     d_ref = (ge * so).sum(1)
     d_rows, d_ws = _grads_of_rows(rows, ws, [ge * reff] * S)

@@ -9,11 +9,17 @@ in-image tap's share). Coordinates are unnormalized pixels, float32.
 The tap order and the rounding of each product and sum match the CUDA
 cost-volume kernels (``csrc/sampling.cuh``), whose plain version this is;
 :func:`grid_sample_batched_adjoint` is the backward kernel's scatter.
+
+The packed-quad sampler below (:func:`grid_sample_quad`) gathers one row
+of a ``pack_quad`` table per sample and reduces it with TPU kernels #7/#8
+(``ops/tap_reduce.py``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .tap_reduce import plain_tap_reduce, tap_reduce, tap_reduce_bwd
 
 Tensor = torch.Tensor
 
@@ -140,3 +146,78 @@ def quad_weights(xy: Tensor, height: int, width: int):
     x0i = torch.clamp(torch.nan_to_num(x0 + 1), 0, width).long()
     y0i = torch.clamp(torch.nan_to_num(y0 + 1), 0, height).long()
     return w4, y0i, x0i
+
+
+def _quad_gather(feat_quad: Tensor, xy: Tensor, height: int, width: int):
+    """The flat table (B*(H+1)*(W+1), 4C), the row index (N,) and the tap
+    weights (N, 4) f32 of :func:`grid_sample_quad`, and its output shape.
+    The batch is folded into the row index, as the JAX function folds it."""
+    batched = feat_quad.ndim == 4
+    B = feat_quad.shape[0] if batched else 1
+    Hq, Wq, C4 = feat_quad.shape[-3:]
+    out_shape = xy.shape[:-1] + (C4 // 4,)
+    w4, y0i, x0i = quad_weights(xy.reshape(B, -1, 2), height, width)
+    base = torch.arange(B, device=xy.device)[:, None] * (Hq * Wq)
+    idx = (base + y0i * Wq + x0i).reshape(-1)
+    return (feat_quad.reshape(B * Hq * Wq, C4), idx, w4.reshape(-1, 4),
+            out_shape)
+
+
+class _QuadSample(torch.autograd.Function):
+    """One row gather from the flat quad table, then the weighted 4-tap
+    reduce: TPU kernel #7 forward, #8 backward, through the dispatchers of
+    ``ops/tap_reduce.py`` (the CUDA kernels for a CUDA tensor, the plain
+    versions for a CPU one).
+
+    It saves the gathered rows, as the JAX ``weighted_tap_reduce`` saves
+    them. The backward adds d rows into a float32 table gradient with one
+    ``index_add_`` and casts once, as ``_quad_sample_bwd`` scatters in
+    float32, and hands d w on to autograd, which carries it through
+    ``quad_weights`` to the coordinates.
+    """
+
+    @staticmethod
+    def forward(ctx, table, idx, w4):
+        rows = table.index_select(0, idx)
+        ctx.save_for_backward(rows, idx, w4)
+        ctx.table_rows = table.shape[0]
+        return tap_reduce(rows, w4).to(table.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, idx, w4 = ctx.saved_tensors
+        d_rows, d_w = tap_reduce_bwd(rows, w4, grad.float().contiguous())
+        d_table = None
+        if ctx.needs_input_grad[0]:
+            d_table = torch.zeros((ctx.table_rows, rows.shape[1]),
+                                  dtype=torch.float32, device=rows.device)
+            d_table.index_add_(0, idx, d_rows.float())
+            d_table = d_table.to(rows.dtype)
+        return d_table, None, d_w
+
+
+def grid_sample_quad(feat_quad: Tensor, xy: Tensor, height: int,
+                     width: int) -> Tensor:
+    """Bilinear sample by one row gather from a :func:`pack_quad` table.
+
+    Counterpart of ``casmvsnet_pl_tpu/ops/grid_sample.py::grid_sample_quad``.
+    feat_quad (H+1, W+1, 4C) with xy (..., 2), or batched (B, H+1, W+1, 4C)
+    with xy (B, ..., 2), pixel coordinates in the (height, width) frame.
+    Returns (..., C) (batched: (B, ..., C)) in feat_quad's dtype, the
+    semantics of :func:`grid_sample`. Differentiable with respect to
+    feat_quad and xy (see :class:`_QuadSample`). The tap weights stay
+    float32 and the taps are summed in float32, rounded once to the
+    table's dtype; the JAX function rounds the weights and every partial
+    sum to a bf16 table's dtype.
+    """
+    table, idx, w4, out_shape = _quad_gather(feat_quad, xy, height, width)
+    return _QuadSample.apply(table, idx, w4).reshape(out_shape)
+
+
+def plain_grid_sample_quad(feat_quad: Tensor, xy: Tensor, height: int,
+                           width: int) -> Tensor:
+    """:func:`grid_sample_quad` in plain PyTorch, differentiated by autograd
+    (the gather's own backward included)."""
+    table, idx, w4, out_shape = _quad_gather(feat_quad, xy, height, width)
+    out = plain_tap_reduce(table.index_select(0, idx), w4)
+    return out.to(table.dtype).reshape(out_shape)

@@ -21,6 +21,14 @@ reduce the rows in the cost epilogue (``ops/cost_epilogue.py``, TPU kernels
 #3-#6). The TPU package's other sampler tables (block, window, patch) and
 the group-fit fallback chain exist because the TPU gather engine charges
 per row; the default path here needs none of them.
+
+The warps of the JAX package's public API are here too:
+:func:`warp_src_feature` (the plain sampler, one view) and
+:func:`warp_src_quad_batched` (the packed-quad sampler, ``grid_sample_quad``
+with TPU kernels #7/#8), whose coordinates are not detached, so that their
+gradient reaches ``proj_mat`` and ``depth_values`` as in JAX; and the
+single-sample cost volumes :func:`variance_cost_volume` and
+:func:`groupwise_cost_volume` over :func:`build_cost_volume`.
 """
 from __future__ import annotations
 
@@ -31,10 +39,48 @@ from .cost_epilogue import (groupwise_epilogue, groupwise_epilogue_bwd,
                             plain_groupwise_epilogue, plain_variance_epilogue,
                             variance_epilogue, variance_epilogue_bwd)
 from .geometry import project_to_src
-from .grid_sample import (grid_sample_batched, grid_sample_batched_adjoint,
+from .grid_sample import (grid_sample, grid_sample_batched,
+                          grid_sample_batched_adjoint, grid_sample_quad,
                           pack_quad, pack_quad_adjoint, quad_weights)
 
 Tensor = torch.Tensor
+
+
+def warp_src_feature(src_feat: Tensor, proj_mat: Tensor,
+                     depth_values: Tensor) -> Tensor:
+    """Warp one source feature map over all depth hypotheses with the plain
+    sampler: src_feat (H, W, C), proj_mat (3, 4), depth_values (D, H, W) ->
+    (D, H, W, C) in src_feat's dtype."""
+    H, W = src_feat.shape[:2]
+    xy = project_to_src(proj_mat, depth_values, H, W)
+    return grid_sample(src_feat, xy).to(src_feat.dtype)
+
+
+def warp_src_quad_batched(src_quad: Tensor, proj_mat: Tensor,
+                          depth_values: Tensor, height: int,
+                          width: int) -> Tensor:
+    """Batched warp through pre-packed quad tables: src_quad (B, H+1, W+1,
+    4C) from ``pack_quad``, proj_mat (B, 3, 4), depth_values (B, D, H, W)
+    -> (B, D, H, W, C) in src_quad's dtype. Differentiable with respect to
+    all three."""
+    xy = project_to_src(proj_mat, depth_values, height, width)
+    return grid_sample_quad(src_quad, xy, height, width)
+
+
+def variance_cost_volume(feats: Tensor, proj_mats: Tensor,
+                         depth_values: Tensor) -> Tensor:
+    """Variance cost volume of one sample: feats (V, H, W, C), reference
+    first; proj_mats (V-1, 3, 4); depth_values (D, H, W) -> (D, H, W, C)."""
+    return build_cost_volume(feats[None], proj_mats[None],
+                             depth_values[None])[0]
+
+
+def groupwise_cost_volume(feats: Tensor, proj_mats: Tensor,
+                          depth_values: Tensor, groups: int) -> Tensor:
+    """Groupwise-correlation cost volume of one sample: shapes as
+    :func:`variance_cost_volume` -> (D, H, W, G)."""
+    return build_cost_volume(feats[None], proj_mats[None],
+                             depth_values[None], groups)[0]
 
 
 def _source_coords(proj_mats: Tensor, depth_values: Tensor, H: int,

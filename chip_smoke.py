@@ -14,7 +14,7 @@ Phases, each of which raises on failure (exit code != 0):
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
      bf16 main path, counting exactly one K1 launch per level;
   6. time bf16 forwards at B=1 and B=4 with CUDA events;
-  7. (below, after phase 19) print the kernels' JSON line (launches per
+  7. (below, after phase 22) print the kernels' JSON line (launches per
      main path; what each time covers; bounds), then {"ok": true,
      "device": ...} last;
   8. hold the backward kernel (K2) against its plain PyTorch version at the
@@ -61,6 +61,26 @@ the cost epilogue kernels, TPU kernels #3-#6):
  19. profile the bf16 forward (B=1) and train step of the default and the
      quad configurations: device time by kernel name (``torch.profiler``).
 
+The packed-quad warp (``warp_src_quad_batched``: ``grid_sample_quad``,
+whose 4-tap reduce is TPU kernel #7 and its VJP #8):
+ 20. hold #7 and #8 against their plain versions on one source view's rows
+     and weights from ``quad_rows`` at the three level shapes (B=2), and on
+     a prefix of N = 100003 rows (no multiple of any block size): #7 out
+     <= 1e-5 abs (f32 and bf16 rows); #8 d rows exact (f32) or within 1
+     bf16 ulp (bf16), d w <= 1e-5 abs + 1e-5 rel;
+ 21. the warp path at full width: both source views at each level (C
+     32/16/8, D 48/32/8, B=2), the plane scene's projections and depth
+     windows. f32: the forward against ``grid_sample_batched`` at the same
+     coordinates (<= 1e-5 abs), and the gradient of sum(out * G) for the
+     source features (through ``pack_quad``), ``proj_mats`` and
+     ``depth_values`` against autograd through the plain route (each leaf
+     within relative L2 1e-4). Then the bf16 main path: forward and
+     backward finite, exactly 6 #7 and 6 #8 launches and no other kernel;
+ 22. time #7 and #8 per level (bf16 rows of one source view, B=2) against
+     their plain versions beside their bounds, and #7's library call, a
+     batched ``torch.matmul`` of w (N, 1, 4) by the rows upcast to f32
+     (N, 4, C); then profile the bf16 warp path of phase 21.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -91,6 +111,11 @@ TRAIN_STEPS = 20
 # #3-#6 write every element once, with no atomics: f32 agrees with the
 # plain versions to the order of their sums
 EPI_TOL = 1e-5
+# #7/#8 write every element once: f32 out and d rows are the plain
+# versions' products and sums in their order; d w sums in another order
+TAP_TOL = 1e-5
+TAP_ODD_N = 100003
+WARP_REL_TOL = 1e-4     # warp gradient leaves, relative L2
 QUAD_TRAIN_STEPS = 10
 G8_TRAIN_STEPS = 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
@@ -103,6 +128,8 @@ QUAD_FWD = {"variance_epilogue_cuda": 3}
 QUAD_STEP = {"variance_epilogue_cuda": 3, "variance_epilogue_bwd_cuda": 3}
 G8_FWD = {"groupwise_epilogue_cuda": 3}
 G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3}
+# forward and backward of both source views at each of the three levels
+WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
 
 
 def levels():
@@ -189,7 +216,8 @@ def all_kernels() -> dict:
     return {n: getattr(k, n) for n in (
         "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
         "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
-        "groupwise_epilogue_bwd_cuda")}
+        "groupwise_epilogue_bwd_cuda", "tap_reduce_cuda",
+        "tap_reduce_bwd_cuda")}
 
 
 def reset_counts() -> None:
@@ -781,8 +809,196 @@ def profile_paths(entry, train_entry, card) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the packed-quad warp: TPU kernels #7/#8 --------------------------------
+
+def tap_level_rows(inputs2, seed: int):
+    """Per level: one source view's rows (N, 4C) f32 and weights (N, 4) f32,
+    N = 2 D h w, that ``quad_rows`` builds at B=2."""
+    for (l, C, D, h, w), (_, rows, ws) in quad_level_rows(inputs2, 2, seed):
+        yield ((l, C, D, h, w), rows[:, 0].reshape(-1, 4 * C),
+               ws[:, 0].reshape(-1, 4))
+        del rows, ws
+
+
+def check_tap_reduce(inputs2) -> dict:
+    """#7 and #8 against their plain versions at every level shape and on a
+    prefix of TAP_ODD_N rows; returns the max f32 abs error by name."""
+    from casmvsnet_pl_tpu_torch import kernels as k
+    from casmvsnet_pl_tpu_torch.ops import tap_reduce as tr
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    worst = {}
+    for (l, C, D, h, w), rows, ws in tap_level_rows(inputs2, 15):
+        for n in (rows.shape[0], TAP_ODD_N):
+            go = torch.randn((n, C), generator=g, device=DEVICE)
+            for dtype in (torch.float32, torch.bfloat16):
+                r, w4 = rows[:n].to(dtype), ws[:n]
+                e_out = (k.tap_reduce_cuda(r, w4)
+                         - tr.plain_tap_reduce(r, w4)).abs().max().item()
+                (d_rows, d_w), (p_rows, p_w) = (
+                    k.tap_reduce_bwd_cuda(r, w4, go),
+                    tr.plain_tap_reduce_bwd(r, w4, go))
+                e_rows = (d_rows.float() - p_rows.float()).abs()
+                ulps = (e_rows / bf16_ulp(p_rows)).max().item()
+                e_rows = e_rows.max().item()
+                e_w = (d_w - p_w).abs()
+                w_ok = bool((e_w <= TAP_TOL + TAP_TOL * p_w.abs()).all())
+                e_w = e_w.max().item()
+                bf16 = dtype == torch.bfloat16
+                print(f"tap-reduce-check L{l} {'bf16' if bf16 else 'f32'} "
+                      f"rows ({n}, {4 * C}): out max_abs_err={e_out!r} "
+                      f"(bound {TAP_TOL}); d rows max_abs_err={e_rows!r} "
+                      f"max_ulps={ulps!r} (bound {'1 ulp' if bf16 else 0}); "
+                      f"d w max_abs_err={e_w!r} (bound {TAP_TOL} + "
+                      f"{TAP_TOL} rel)")
+                if not e_out <= TAP_TOL:
+                    raise AssertionError(f"L{l} #7 error {e_out}")
+                if not (ulps <= 1.0 if bf16 else e_rows == 0.0):
+                    raise AssertionError(f"L{l} #8 d rows error {e_rows}")
+                if not w_ok:
+                    raise AssertionError(f"L{l} #8 d w error {e_w}")
+                if not bf16:
+                    for name, e in (("tap_reduce_cuda", e_out),
+                                    ("tap_reduce_bwd_cuda", max(e_rows,
+                                                                e_w))):
+                        worst[name] = max(worst.get(name, 0.0), e)
+                del d_rows, d_w, p_rows, p_w, r
+        del rows, ws
+    return worst
+
+
+def warp_views(inputs2, dtype, seed: int):
+    """For each level and source view v: (level, leaves, G), with leaves
+    the source features (2, h, w, C) of view v, its projections (2, 3, 4)
+    and the depth windows (2, D, h, w), all requiring grad, and G a seeded
+    gradient of the warp's output."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    for lvl in levels():
+        l, C, D, h, w = lvl
+        proj, dv = inputs2[l]
+        feats = torch.rand((2, 3, h, w, C), generator=g, device=DEVICE)
+        for v in (1, 2):
+            leaves = [feats[:, v].to(dtype).requires_grad_(True),
+                      proj[:, v - 1].clone().requires_grad_(True),
+                      dv.clone().requires_grad_(True)]
+            G = torch.randn((2, D, h, w, C), generator=g,
+                            device=DEVICE).to(dtype)
+            yield lvl, leaves, G
+
+
+def check_warp(inputs2) -> None:
+    """Phase 21, f32: the warp through #7/#8 against the plain sampler
+    forward and against autograd through its plain route backward."""
+    from casmvsnet_pl_tpu_torch.ops import (grid_sample_batched, pack_quad,
+                                            plain_grid_sample_quad,
+                                            project_to_src,
+                                            warp_src_quad_batched)
+    reset_counts()
+    for (l, C, D, h, w), leaves, G in warp_views(inputs2, torch.float32, 16):
+        src, P, d = leaves
+        out = warp_src_quad_batched(pack_quad(src), P, d, h, w)
+        got = torch.autograd.grad(out, leaves, G)
+        xy = project_to_src(P, d, h, w)
+        with torch.no_grad():
+            e_fwd = (out - grid_sample_batched(src, xy)).abs().max().item()
+        plain = plain_grid_sample_quad(pack_quad(src), xy, h, w)
+        want = torch.autograd.grad(plain, leaves, G)
+        rel = [((a - b).norm() / b.norm()).item() for a, b in zip(got, want)]
+        print(f"warp-check L{l} f32 out {tuple(out.shape)}: forward vs "
+              f"grid_sample_batched max_abs_err={e_fwd!r} (bound {TAP_TOL}); "
+              f"gradient relative L2 vs plain autograd: features {rel[0]!r}, "
+              f"proj {rel[1]!r}, depth {rel[2]!r} (bound {WARP_REL_TOL})")
+        if not e_fwd <= TAP_TOL:
+            raise AssertionError(f"L{l} warp forward error {e_fwd}")
+        if not all(r <= WARP_REL_TOL for r in rel):
+            raise AssertionError(f"L{l} warp gradient error {rel}")
+        del out, got, xy, plain, want
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), WARP_PATH, "f32 warp check")
+
+
+def warp_pass(views) -> torch.Tensor:
+    """Forward and backward of the warp for each of ``views`` (as
+    :func:`warp_views` yields them); returns whether every output and
+    gradient is finite, as a tensor on the card."""
+    from casmvsnet_pl_tpu_torch.ops import pack_quad, warp_src_quad_batched
+    flags = []
+    for (l, C, D, h, w), leaves, G in views:
+        src, P, d = leaves
+        out = warp_src_quad_batched(pack_quad(src), P, d, h, w)
+        grads = torch.autograd.grad(out, leaves, G)
+        flags += [torch.isfinite(t).all() for t in (out, *grads)]
+    return torch.stack(flags).all()
+
+
+def warp_main_path(views, card) -> dict:
+    """Phase 21, the warp's main path: bf16 forward and backward of both
+    source views at each level, every output and gradient finite, the
+    launches exactly WARP_PATH; returns the launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    finite = bool(warp_pass(views))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"warp bf16 main path, B=2, both source views at 3 levels, forward "
+          f"+ backward: {(time.perf_counter() - t0) * 1e3!r} ms wall, all "
+          f"finite {finite}; launches {counts} [{card}]")
+    expect_counts(counts, WARP_PATH, "bf16 warp")
+    if not finite:
+        raise AssertionError("non-finite warp output or gradient")
+    return counts
+
+
+def tap_reduce_work(N, C, itemsize, backward=False):
+    """(bytes, float32 operations) of #7, or of #8 with ``backward``, for N
+    samples: #7 reads the rows (4C values) and the f32 weights (16 B) once
+    and writes the f32 output (4C B) once, 8C operations; #8 reads the
+    rows, the weights and the f32 gradient and writes d rows and d w once,
+    12C operations (d rows 4C, d w 8C)."""
+    if not backward:
+        return N * (4 * C * itemsize + 16 + 4 * C), N * 8 * C
+    return N * (8 * C * itemsize + 4 * C + 32), N * 12 * C
+
+
+def time_tap_reduce(inputs2, card) -> tuple[dict, float]:
+    """Phase 22: #7 and #8 against their plain versions per level on one
+    source view's bf16 rows (B=2), and #7's library call, a batched
+    ``torch.matmul`` on the rows upcast to f32 outside the timed region.
+    Returns the sums as :func:`time_kernels` does, and the library call's
+    time summed over the levels."""
+    from casmvsnet_pl_tpu_torch import kernels as k
+    from casmvsnet_pl_tpu_torch.ops import tap_reduce as tr
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    sums, library_ms = {}, 0.0
+    for (l, C, D, h, w), rows, ws in tap_level_rows(inputs2, 19):
+        rb = rows.to(torch.bfloat16)
+        del rows
+        N = rb.shape[0]
+        go = torch.randn((N, C), generator=g, device=DEVICE)
+        label = f"L{l} bf16 rows {tuple(rb.shape)}"
+        time_level(sums, "tap_reduce_cuda", label,
+                   lambda: k.tap_reduce_cuda(rb, ws),
+                   lambda: tr.plain_tap_reduce(rb, ws), (50, 5),
+                   tap_reduce_work(N, C, 2), card)
+        time_level(sums, "tap_reduce_bwd_cuda", label,
+                   lambda: k.tap_reduce_bwd_cuda(rb, ws, go),
+                   lambda: tr.plain_tap_reduce_bwd(rb, ws, go), (50, 5),
+                   tap_reduce_work(N, C, 2, backward=True), card)
+        rf, wv = rb.float().view(N, 4, C), ws.view(N, 1, 4)
+        ms = cuda_ms(lambda: torch.matmul(wv, rf), 20)
+        err = (torch.matmul(wv, rf).view(N, C)
+               - k.tap_reduce_cuda(rb, ws)).abs().max().item()
+        print(f"timing library torch.matmul (N,1,4) x (N,4,C) f32 {label}: "
+              f"{ms!r} ms, max_abs_err vs #7 {err!r} [{card}]")
+        library_ms += ms
+        del rb, ws, go, rf, wv
+    return ({name: (k_ms, p_ms, *bound(nbytes, flops))
+             for name, (k_ms, p_ms, nbytes, flops) in sums.items()},
+            library_ms)
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
-                max_err, times, timed) -> dict:
+                max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
     the ``main_path`` run."""
     k_ms, p_ms, b_ms, by = times
@@ -790,7 +1006,7 @@ def kernel_line(name, source, replaces, launches_by_path, main_path,
             "replaces": replaces, "launches": launches_by_path[main_path],
             "launches_by_path": launches_by_path, "max_abs_err": max_err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "timed": timed}
+            "library_ms": library_ms, "timed": timed}
 
 
 def main() -> int:
@@ -842,11 +1058,22 @@ def main() -> int:
     kernel_times = time_kernels(inputs, inputs2, card)
     profile_paths(entry, train_entry, card)
 
+    errs.update(check_tap_reduce(inputs2))
+    check_warp(inputs2)
+    views = list(warp_views(inputs2, torch.bfloat16, 17))
+    paths["warp"] = warp_main_path(views, card)
+    tap_times, tap_library_ms = time_tap_reduce(inputs2, card)
+    kernel_times.update(tap_times)
+    profile(lambda: warp_pass(views), " warp bf16 B=2 forward + backward, "
+            "2 source views x 3 levels", card)
+    del views
+
     # "launches" is the count of the kernel's main path (the default path's
-    # training run for K1 and K2, the quad configuration's for #3-#6);
-    # "launches_by_path" gives every path's own run, and "timed" says what
-    # ms, plain_ms and bound_ms cover. No single PyTorch call computes any
-    # of these functions, so library_ms is null.
+    # training run for K1 and K2, the quad configuration's for #3-#6, the
+    # warp's for #7/#8); "launches_by_path" gives every path's own run, and
+    # "timed" says what ms, plain_ms and bound_ms cover. No single PyTorch
+    # call computes K1, K2 or #3-#6, so their library_ms is null; #7's is a
+    # batched torch.matmul, and #8 has none.
     def by_path(name, keys):
         return {p: paths[p].get(name, 0) for p in keys}
 
@@ -876,6 +1103,16 @@ def main() -> int:
             name, csrc + source, replaces, by_path(cname, keys), main_path,
             errs[cname], kernel_times[cname],
             timed + ", sum over the 3 level shapes"))
+    ktr = "scripts/kernel_tap_reduce.py:"
+    for name, line, library_ms in (("tap_reduce", "86", tap_library_ms),
+                                   ("tap_reduce_bwd", "121", None)):
+        cname = name + "_cuda"
+        lines.append(kernel_line(
+            name, csrc + "tap_reduce.cu", ktr + line,
+            by_path(cname, default_paths + g8_paths + ("warp",)), "warp",
+            errs[cname], kernel_times[cname],
+            "bf16 rows of one source view B=2, sum over the 3 level shapes",
+            library_ms))
     for entry_ in lines:
         if entry_["launches"] < 1:
             raise AssertionError(f"{entry_['name']} never launched on its "

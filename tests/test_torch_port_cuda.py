@@ -1,6 +1,7 @@
-"""The CUDA cost-volume kernels (K1 forward, K2 backward) and the quad
-configuration's cost epilogues (TPU kernels #3-#6) against their plain
-versions, on the card.
+"""The CUDA cost-volume kernels (K1 forward, K2 backward), the quad
+configuration's cost epilogues (TPU kernels #3-#6) and the packed-quad
+sampler's weighted 4-tap reduce (#7/#8) against their plain versions, on
+the card.
 
 Marked ``cuda``: each test skips (inside the ``cuda`` fixture, never at
 collection) where there is no CUDA device. On a machine with one:
@@ -15,14 +16,20 @@ from casmvsnet_pl_tpu_torch.kernels import (cost_volume_bwd_cuda,
                                             cost_volume_cuda,
                                             groupwise_epilogue_bwd_cuda,
                                             groupwise_epilogue_cuda,
+                                            tap_reduce_bwd_cuda,
+                                            tap_reduce_cuda,
                                             variance_epilogue_bwd_cuda,
                                             variance_epilogue_cuda)
 from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
+from casmvsnet_pl_tpu_torch.ops import tap_reduce as tr
+from casmvsnet_pl_tpu_torch.ops.grid_sample import (pack_quad,
+                                                    plain_grid_sample_quad)
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (build_cost_volume,
                                                     plain_cost_volume,
                                                     plain_cost_volume_bwd,
                                                     plain_quad_cost_volume,
-                                                    quad_rows)
+                                                    project_to_src, quad_rows,
+                                                    warp_src_quad_batched)
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +273,95 @@ def test_epilogue_kernels_reject_what_they_do_not_take(cuda):
         variance_epilogue_bwd_cuda(ref, rows, ws, go.to(torch.bfloat16))
     with pytest.raises(ValueError, match="autograd"):
         variance_epilogue_cuda(ref.requires_grad_(True), rows, ws)
+
+
+def _tap_inputs(C, N, seed):
+    """rows (N, 4C) in [0, 1), w (N, 4) f32 with some zero weights, g (N, C)
+    f32, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.rand((N, 4 * C), generator=g, device="cuda")
+    w = torch.rand((N, 4), generator=g, device="cuda")
+    w[torch.rand((N, 4), generator=g, device="cuda") < 0.2] = 0.0
+    return rows, w, torch.randn((N, C), generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("N", [1, 37, 100003])
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_tap_reduce_kernels_match_plain(cuda, C, N):
+    """#7 and #8 against their plain versions, N no multiple of any block
+    size. f32: out within 1e-5, d rows exact (one product each), d w within
+    1e-5 abs + rel (another order of its sum). bf16 rows: the same bounds on
+    the f32 outputs, d rows within 1 bf16 ulp of the plain one."""
+    rows, w, go = _tap_inputs(C, N, C + N)
+    before = tap_reduce_cuda.launches, tap_reduce_bwd_cuda.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        r = rows.to(dtype)
+        out = tap_reduce_cuda(r, w)
+        assert out.shape == (N, C) and out.dtype == torch.float32
+        torch.testing.assert_close(out, tr.plain_tap_reduce(r, w), rtol=0,
+                                   atol=1e-5)
+        d_rows, d_w = tap_reduce_bwd_cuda(r, w, go)
+        p_rows, p_w = tr.plain_tap_reduce_bwd(r, w, go)
+        assert d_rows.dtype == dtype and d_w.dtype == torch.float32
+        if dtype == torch.float32:
+            torch.testing.assert_close(d_rows, p_rows, rtol=0, atol=0)
+        else:
+            err = (d_rows.float() - p_rows.float()).abs()
+            assert bool((err <= bf16_ulp(p_rows)).all())
+        torch.testing.assert_close(d_w, p_w, rtol=1e-5, atol=1e-5)
+    assert (tap_reduce_cuda.launches, tap_reduce_bwd_cuda.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_tap_reduce_kernels_reject_what_they_do_not_take(cuda):
+    rows, w, go = _tap_inputs(8, 64, 3)
+    with pytest.raises(ValueError, match="C="):
+        tap_reduce_cuda(rows[:, :24].contiguous(), w)
+    with pytest.raises(ValueError, match="dtype"):
+        tap_reduce_cuda(rows.double(), w)
+    with pytest.raises(ValueError, match="w must"):
+        tap_reduce_cuda(rows, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="g must"):
+        tap_reduce_bwd_cuda(rows, w, go[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tap_reduce_cuda(rows, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="aligned"):
+        tap_reduce_cuda(rows, torch.empty(w.numel() + 1,
+                                          device="cuda")[1:].view(w.shape))
+    with pytest.raises(ValueError, match="aligned"):
+        tap_reduce_bwd_cuda(rows, w, torch.empty(
+            go.numel() + 2, device="cuda")[2:].view(go.shape))
+    with pytest.raises(ValueError, match="autograd"):
+        tap_reduce_cuda(rows.requires_grad_(True), w)
+
+
+@pytest.mark.parametrize("C", [8, 32])
+def test_warp_function_matches_plain_autograd(cuda, C):
+    """The packed-quad warp through #7/#8 against autograd through its plain
+    route, on the same coordinates: the output within 1e-5, each leaf's
+    gradient (source features, projection, depths) within relative L2
+    1e-4 (index_add_ and d w sum in other orders)."""
+    feats, proj, dv = _scene(C, 8, **GEOMETRIES["translation"])
+    g = torch.Generator(device="cuda").manual_seed(13)
+    leaves = [feats[:, 1].clone().requires_grad_(True),
+              proj[:, 0].clone().requires_grad_(True),
+              dv.clone().requires_grad_(True)]
+    src, P, d = leaves
+    before = tap_reduce_cuda.launches, tap_reduce_bwd_cuda.launches
+    out = warp_src_quad_batched(pack_quad(src), P, d, 20, 36)
+    go = torch.randn(out.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(out, leaves, go)
+    assert (tap_reduce_cuda.launches, tap_reduce_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = plain_grid_sample_quad(pack_quad(src),
+                                   project_to_src(P, d, 20, 36), 20, 36)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    for name, a, b in zip(("d features", "d proj", "d depth"), got,
+                          torch.autograd.grad(plain, leaves, go)):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4, name
+    out_b = warp_src_quad_batched(pack_quad(src.detach().to(torch.bfloat16)
+                                            .requires_grad_(True)), P, d,
+                                  20, 36)
+    assert out_b.dtype == torch.bfloat16
+    grads_b = torch.autograd.grad(out_b, (P, d), go.to(torch.bfloat16))
+    assert all(torch.isfinite(t).all() for t in grads_b)

@@ -1,7 +1,7 @@
 """Cheap guards on the port: no JAX inside it, no CPU fallback on the card
 path, and its main paths (inference and a train step, default and quad
-configurations) run end to end on the CPU at a small size without
-launching a kernel."""
+configurations, and the packed-quad warp) run end to end on the CPU at a
+small size without launching a kernel."""
 import ast
 import math
 import os
@@ -121,7 +121,7 @@ def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     before = _all_launches()
-    assert len(before) == 6
+    assert len(before) == 8
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)
@@ -148,21 +148,47 @@ def test_quad_train_entry_steps_on_cpu_without_kernels():
 @pytest.mark.parametrize("name", ["variance_epilogue_cuda",
                                   "groupwise_epilogue_cuda",
                                   "variance_epilogue_bwd_cuda",
-                                  "groupwise_epilogue_bwd_cuda"])
+                                  "groupwise_epilogue_bwd_cuda",
+                                  "tap_reduce_cuda", "tap_reduce_bwd_cuda"])
 def test_epilogue_kernels_refuse_cpu_tensors(name):
     from casmvsnet_pl_tpu_torch import kernels
 
     kernel = getattr(kernels, name)
-    groups = 2 if "groupwise" in name else 1
-    ref = torch.rand(1, 8, 8)
-    rows = torch.rand(1, 2, 4, 8, 32)
-    ws = torch.rand(1, 2, 4, 8, 4)
-    args = (ref, rows, ws)
-    if "bwd" in name:
-        args += (torch.rand(1, 4, 8, 8 if groups == 1 else groups),)
+    if name.startswith("tap_reduce"):
+        args, kw = (torch.rand(37, 32), torch.rand(37, 4)), {}
+        if "bwd" in name:
+            args += (torch.rand(37, 8),)
+    else:
+        groups = 2 if "groupwise" in name else 1
+        ref = torch.rand(1, 8, 8)
+        rows = torch.rand(1, 2, 4, 8, 32)
+        ws = torch.rand(1, 2, 4, 8, 4)
+        args, kw = (ref, rows, ws), {"groups": groups}
+        if "bwd" in name:
+            args += (torch.rand(1, 4, 8, 8 if groups == 1 else groups),)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel(*args, groups=groups)
+        kernel(*args, **kw)
     assert kernel.launches == 0
+
+
+def test_warp_runs_on_cpu_without_kernels():
+    """The packed-quad warp and its backward on CPU tensors take the plain
+    tap reduce: no kernel launches."""
+    from casmvsnet_pl_tpu_torch.ops import pack_quad, warp_src_quad_batched
+
+    feats = torch.rand(2, 12, 16, 8, requires_grad=True)
+    proj = torch.eye(3, 4).repeat(2, 1, 1)
+    proj[:, 0, 3] = 40.0
+    proj.requires_grad_(True)
+    dv = torch.linspace(430.0, 450.0, 4)[None, :, None, None].repeat(
+        2, 1, 12, 16).requires_grad_(True)
+    before = _all_launches()
+    out = warp_src_quad_batched(pack_quad(feats), proj, dv, 12, 16)
+    out.square().sum().backward()
+    assert _all_launches() == before
+    assert out.shape == (2, 4, 12, 16, 8)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (feats, proj, dv))
 
 
 def test_window_sampling_raises():
