@@ -43,18 +43,6 @@ using namespace cv;
 constexpr int kThreads = 128;
 constexpr int kN = 8;  // channels per thread
 
-// o = sum_q w[q] * row[q*C + c] for the kN channels at row, taps in order.
-template <typename T, int C>
-__device__ __forceinline__ void reduce_taps(const T* __restrict__ row,
-                                            const float4 w, float (&o)[kN]) {
-  load_row<T, kN>(row, o);
-#pragma unroll
-  for (int c = 0; c < kN; ++c) o[c] = __fmul_rn(o[c], w.x);
-  add_tap<T, kN>(row + C, w.y, o);
-  add_tap<T, kN>(row + 2 * C, w.z, o);
-  add_tap<T, kN>(row + 3 * C, w.w, o);
-}
-
 // G == 1: variance over the S + 1 views. G > 1: groupwise correlation.
 template <typename T, int C, int G>
 __global__ void __launch_bounds__(kThreads)

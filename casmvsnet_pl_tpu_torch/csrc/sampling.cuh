@@ -1,8 +1,9 @@
 // Device helpers shared by the cost-volume kernels (cost_volume.cu, the
-// forward, and cost_volume_bwd.cu, its adjoint) and the quad configuration's
-// cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu): dtype conversion,
-// 16-byte row loads and stores, the plane-sweep projection, the bilinear
-// taps and the (dtype, C, G) dispatch.
+// forward, and cost_volume_bwd.cu, its adjoint), the quad configuration's
+// cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu) and the probes:
+// dtype conversion, 16-byte row loads and stores, the 4-tap reduce of a
+// packed-quad row, the plane-sweep projection, the bilinear taps and the
+// (dtype, C, G) dispatch.
 //
 // Every product and sum that the plain PyTorch version (ops/geometry.py::
 // project_to_src, ops/grid_sample.py) rounds separately is written with an
@@ -85,6 +86,19 @@ __device__ __forceinline__ void add_tap(const T* __restrict__ p, float w,
           __fadd_rn(o[i * kVec + j], __fmul_rn(to_float(e[j]), w));
     }
   }
+}
+
+// o = sum_q w[q] * row[q*C + c] for the N channels at row, a packed-quad
+// row of 4C channels, the taps added in order (the cost epilogues').
+template <typename T, int C, int N>
+__device__ __forceinline__ void reduce_taps(const T* __restrict__ row,
+                                            const float4 w, float (&o)[N]) {
+  load_row<T, N>(row, o);
+#pragma unroll
+  for (int c = 0; c < N; ++c) o[c] = __fmul_rn(o[c], w.x);
+  add_tap<T, N>(row + C, w.y, o);
+  add_tap<T, N>(row + 2 * C, w.z, o);
+  add_tap<T, N>(row + 3 * C, w.w, o);
 }
 
 // The bilinear footprint of one plane-sweep sample in a source view: the

@@ -2,8 +2,9 @@
 
 One shared library holds every kernel of ``csrc/``: the two here, the
 quad configuration's cost epilogues, launched from
-``kernels/cost_epilogue.py``, and the weighted 4-tap reduce of the
-packed-quad sampler, launched from ``kernels/tap_reduce.py``.
+``kernels/cost_epilogue.py``, the weighted 4-tap reduce of the
+packed-quad sampler, launched from ``kernels/tap_reduce.py``, and the
+probes of TPU kernels #9-#13, launched from ``kernels/probes.py``.
 
 - K1, ``csrc/cost_volume.cu``: the forward. It replaces the TPU package's
   Pallas patch epilogue (``casmvsnet_pl_tpu/kernels/patch_epilogue.py::
@@ -116,6 +117,16 @@ class KernelLibrary:
                                        + [ctypes.c_int64] + [ctypes.c_int] * 2
                                        + [ctypes.c_void_p])
         lib.tap_reduce_bwd.restype = ctypes.c_int
+        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for fn, args in (
+                ("lane_prefix_copy_fwd", [P, P, I64, I, I, P]),
+                ("row_gather_fwd", [P, P, P, I64, I64, I, I, P]),
+                ("lane_gather_fwd", [P, P, P, I64, I, I, I, P]),
+                ("variance_dblk_fwd", [P] * 4 + [I] * 7 + [P]),
+                ("variance_v3_fwd", [P] * 4 + [I] * 6 + [P]),
+                ("patch_epilogue_t_fwd", [P] * 4 + [I] * 5 + [P])):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
         lib.cost_volume_error_string.argtypes = [ctypes.c_int]
         lib.cost_volume_error_string.restype = ctypes.c_char_p
         self._lib = lib

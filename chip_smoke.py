@@ -14,7 +14,7 @@ Phases, each of which raises on failure (exit code != 0):
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
      bf16 main path, counting exactly one K1 launch per level;
   6. time bf16 forwards at B=1 and B=4 with CUDA events;
-  7. (below, after phase 22) print the kernels' JSON line (launches per
+  7. (below, after phase 26) print the kernels' JSON line (launches per
      main path; what each time covers; bounds), then {"ok": true,
      "device": ...} last;
   8. hold the backward kernel (K2) against its plain PyTorch version at the
@@ -81,10 +81,31 @@ whose 4-tap reduce is TPU kernel #7 and its VJP #8):
      batched ``torch.matmul`` of w (N, 1, 4) by the rows upcast to f32
      (N, 4, C); then profile the bf16 warp path of phase 21.
 
+The probes (``casmvsnet_pl_tpu_torch/probes``: the card's counterparts of
+the TPU probes, kernels #9-#13), each probe's ``main`` path at the probe's
+full-width shapes, every configuration checked against its plain version
+and timed in turns beside its bound; one "probes" path whose launches are
+counted over phases 23-26:
+ 23. #13 (``probes/gather.py``): the three row-gather forms (ldg, cp_async,
+     bulk) and the lane gather at the TPU probe's shapes, the probe's five
+     gather forms in PyTorch equal, then the forms at the quad route's own
+     gather (``quad_rows`` at B=1, 3 levels) beside ``index_select``; and
+     #11 (``probes/epi3.py``): the lane-prefix copy at 1024 and 8192 rows
+     per block beside ``rows[..., :C].contiguous()``. Bit-exact;
+ 24. #9 (``probes/epi2.py``): the variance epilogue with dblk in {1, 4, 8,
+     D} depths per thread at the probe's L1 and L2 configs, beside #3;
+ 25. #10 (``probes/epi3.py``): the V=3 variance epilogue at 64-1024
+     threads per block, beside #3. #9/#10: f32 <= 1e-5 abs, bf16 <= 1 bf16
+     ulp of the plain f32 result;
+ 26. #12 (``probes/epi5.py``): the transposed patch epilogue per level and
+     channel split (f32 out <= 1e-5 abs), and the probe's four samplers of
+     one view (quad, validfold, tfma, the kernel) in ms and ns per sample.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
-counted from this run's shapes.
+counted from this run's shapes (the lane-prefix copy's bytes are the
+prefixes it must read and write, not the whole rows).
 """
 from __future__ import annotations
 
@@ -96,6 +117,10 @@ import sys
 import time
 
 import torch
+
+from casmvsnet_pl_tpu_torch.probes.common import (bf16_ulp, bound, combine_ops,
+                                                  cuda_ms, default_levels,
+                                                  epilogue_work, plane_levels)
 
 DEVICE = "cuda"
 IMG_WH = (640, 512)
@@ -118,8 +143,6 @@ TAP_ODD_N = 100003
 WARP_REL_TOL = 1e-4     # warp gradient leaves, relative L2
 QUAD_TRAIN_STEPS = 10
 G8_TRAIN_STEPS = 2
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
-F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 
 # kernel launches of one forward and of one train step, per configuration
 DEFAULT_FWD = {"cost_volume_cuda": 3}
@@ -130,13 +153,16 @@ G8_FWD = {"groupwise_epilogue_cuda": 3}
 G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3}
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
+# the probes' kernels (TPU kernels #9-#13), each launched on the probes path
+PROBE_KERNELS = ("lane_prefix_copy_cuda", "row_gather_ldg_cuda",
+                 "row_gather_cp_async_cuda", "row_gather_bulk_cuda",
+                 "lane_gather_cuda", "variance_dblk_cuda", "variance_v3_cuda",
+                 "patch_epilogue_t_cuda")
 
 
 def levels():
     """(level, C, D, h, w) of the default config, coarse to fine."""
-    W, H = IMG_WH
-    return [(l, 8 << l, d, H >> l, W >> l)
-            for l, d in ((2, 48), (1, 32), (0, 8))]
+    return default_levels(IMG_WH)
 
 
 def toolchain() -> str:
@@ -178,36 +204,7 @@ def level_inputs(batch: int = 1):
     """Per level: (proj (B, 2, 3, 4), depth windows (B, D, h, w)), built
     the way the cascade builds them, on the plane scene, repeated B
     times."""
-    from casmvsnet_pl_tpu_torch.data import PlaneScene
-    from casmvsnet_pl_tpu_torch.entry import DEPTH_INTERVAL, DEPTH_MIN
-    from casmvsnet_pl_tpu_torch.ops import (get_depth_values,
-                                            initial_depth_values,
-                                            resize_bilinear)
-    scene = PlaneScene(img_wh=IMG_WH, n_views=3, z0=460.0, baseline=12.0,
-                       focal=600.0, slope_x=0.2)
-    _, proj, depths = scene.model_inputs()
-    proj = torch.from_numpy(proj).to(DEVICE)
-    out = {}
-    for l, C, D, h, w in levels():
-        interval = DEPTH_INTERVAL * 2 ** l
-        if l == 2:
-            dv = initial_depth_values(DEPTH_MIN, interval, D, 1, h, w,
-                                      device=DEVICE)
-        else:
-            # recentre on the next-coarser depth, upsampled x2
-            prev = torch.from_numpy(depths[f"level_{l + 1}"]).to(DEVICE)
-            prev = resize_bilinear(prev[..., None], (h, w))[..., 0]
-            dv = get_depth_values(prev, D, interval)
-        out[l] = (proj[:, :, l].repeat(batch, 1, 1, 1).contiguous(),
-                  dv.repeat(batch, 1, 1, 1).contiguous())
-    return out
-
-
-def bf16_ulp(x):
-    """Spacing of bf16 numbers at x (bf16 holds 8 significant bits)."""
-    _, e = torch.frexp(x.float())
-    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
-    return torch.where(x == 0, torch.full_like(ulp, 2.0 ** -133), ulp)
+    return plane_levels(DEVICE, batch, IMG_WH)
 
 
 def all_kernels() -> dict:
@@ -217,7 +214,7 @@ def all_kernels() -> dict:
         "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
         "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
         "groupwise_epilogue_bwd_cuda", "tap_reduce_cuda",
-        "tap_reduce_bwd_cuda")}
+        "tap_reduce_bwd_cuda") + PROBE_KERNELS}
 
 
 def reset_counts() -> None:
@@ -355,34 +352,6 @@ def check_quad_forward(entry) -> dict:
                              sampling="quad")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
-    the float32 operations over the float32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def combine_ops(S: int, C: int, groups: int) -> int:
-    """float32 operations of the variance or groupwise combine per (b, d,
-    pixel): per view 3C (variance: s, o^2, sq) or 2C (groupwise), then 4C
-    (variance) or C (groupwise) to finish."""
-    return 3 * C * S + 4 * C if groups == 1 else 2 * C * S + C
-
-
 def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
     """(bytes, float32 operations) of K1, or of K2 with ``backward``, at one
     level: features, projections and depths read once, the volume (K1) or
@@ -397,24 +366,6 @@ def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
     if not backward:
         return nbytes, n * per
     return nbytes + B * V * h * w * C * 4, n * (per + 8 * C * S)
-
-
-def epilogue_work(B, S, D, hw, C, groups, itemsize, backward=False):
-    """(bytes, float32 operations) of #3/#5, or of #4/#6 with ``backward``:
-    ref, rows and weights read once and the volume written once; the
-    backward also reads the volume's gradient and writes d ref (f32), d
-    rows and d ws (f32) once. Per (b, d, pixel): 8C per view for the taps;
-    the backward's own work is those taps once (#4/#6 compute them twice)
-    and 12C per view for d rows and d ws."""
-    n = B * D * hw
-    cout = C if groups == 1 else groups
-    nbytes = (B * hw * C * itemsize + n * S * 4 * C * itemsize + n * S * 16
-              + n * cout * itemsize)
-    per = 8 * C * S + combine_ops(S, C, groups)
-    if not backward:
-        return nbytes, n * per
-    nbytes += B * hw * C * 4 + n * S * 4 * C * itemsize + n * S * 16
-    return nbytes, n * (per + 12 * C * S)
 
 
 def time_forward(entry, card, label: str = "", **kw) -> None:
@@ -997,6 +948,57 @@ def time_tap_reduce(inputs2, card) -> tuple[dict, float]:
             library_ms)
 
 
+# --- the probes: TPU kernels #9-#13 -----------------------------------------
+
+def probes_path(card) -> tuple[list, dict]:
+    """Phases 23-26: each probe's main path on the card; returns the timed
+    results and the launches counted over the four phases, in which every
+    probe kernel launches."""
+    from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = gather.main(DEVICE, card, IMG_WH)               # 23: #13
+    data = epi3.inputs(DEVICE)
+    results += epi3.run_copy(data, card)                      #     #11
+    results += epi2.main(DEVICE, card)                        # 24: #9
+    results += epi3.run_var(data, card)                       # 25: #10
+    del data
+    results += epi5.main(DEVICE, card)                        # 26: #12
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"probes path (phases 23-26): {time.perf_counter() - t0!r} s wall; "
+          f"launches {counts} [{card}]")
+    never = [n for n in PROBE_KERNELS if counts[n] < 1]
+    if never:
+        raise AssertionError(f"probe kernels never launched: {never}")
+    return results, counts
+
+
+def probe_summary(results) -> dict:
+    """By wrapper name: the fastest configuration of each probe kernel, its
+    results summed over the shapes it covers (k ms, plain ms, bound ms,
+    bound by, max f32 error over every configuration, library ms, what the
+    times cover)."""
+    out = {}
+    for name in PROBE_KERNELS:
+        mine = [r for r in results if r.kernel == name]
+        groups = {}
+        for r in mine:
+            groups.setdefault(r.group, []).append(r)
+        group, rs = min(groups.items(),
+                        key=lambda kv: sum(r.ms for r in kv[1]))
+        libs = [r.library_ms for r in rs]
+        out[name] = (sum(r.ms for r in rs), sum(r.plain_ms for r in rs),
+                     *bound(sum(r.nbytes for r in rs),
+                            sum(r.flops for r in rs)),
+                     max(r.max_abs_err for r in mine),
+                     None if None in libs else sum(libs),
+                     f"{group}, the fastest of {sorted(groups)}; "
+                     + " + ".join(r.label for r in rs))
+    return out
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -1067,13 +1069,16 @@ def main() -> int:
     profile(lambda: warp_pass(views), " warp bf16 B=2 forward + backward, "
             "2 source views x 3 levels", card)
     del views
+    torch.cuda.empty_cache()
+    probe_results, paths["probes"] = probes_path(card)
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
-    # warp's for #7/#8); "launches_by_path" gives every path's own run, and
-    # "timed" says what ms, plain_ms and bound_ms cover. No single PyTorch
-    # call computes K1, K2 or #3-#6, so their library_ms is null; #7's is a
-    # batched torch.matmul, and #8 has none.
+    # warp's for #7/#8, the probes' for #9-#13); "launches_by_path" gives
+    # every path's own run, and "timed" says what ms, plain_ms and bound_ms
+    # cover. No single PyTorch call computes K1, K2, #3-#6, #9, #10 or #12,
+    # so their library_ms is null; #7's is a batched torch.matmul, #11's
+    # rows[..., :C].contiguous(), #13's index_select; #8 has none.
     def by_path(name, keys):
         return {p: paths[p].get(name, 0) for p in keys}
 
@@ -1113,6 +1118,23 @@ def main() -> int:
             errs[cname], kernel_times[cname],
             "bf16 rows of one source view B=2, sum over the 3 level shapes",
             library_ms))
+    all_paths = default_paths + g8_paths + ("warp", "probes")
+    summary = probe_summary(probe_results)
+    for name, source, line in (
+            ("lane_prefix_copy", "probe_copy_gather.cu", "probe_epi3.py:88"),
+            ("row_gather_ldg", "probe_copy_gather.cu", "probe_gather.py:18"),
+            ("row_gather_cp_async", "probe_copy_gather.cu",
+             "probe_gather.py:18"),
+            ("row_gather_bulk", "probe_copy_gather.cu", "probe_gather.py:18"),
+            ("lane_gather", "probe_copy_gather.cu", "probe_gather.py:18"),
+            ("variance_dblk", "probe_epilogue.cu", "probe_epi2.py:69"),
+            ("variance_v3", "probe_epilogue.cu", "probe_epi3.py:62"),
+            ("patch_epilogue_t", "patch_epilogue_t.cu", "probe_epi5.py:101")):
+        k_ms, p_ms, b_ms, by, err, lib, timed = summary[name + "_cuda"]
+        lines.append(kernel_line(
+            name, csrc + source, "scripts/" + line,
+            by_path(name + "_cuda", all_paths), "probes", err,
+            (k_ms, p_ms, b_ms, by), timed, lib))
     for entry_ in lines:
         if entry_["launches"] < 1:
             raise AssertionError(f"{entry_['name']} never launched on its "

@@ -1,7 +1,7 @@
 """The CUDA cost-volume kernels (K1 forward, K2 backward), the quad
-configuration's cost epilogues (TPU kernels #3-#6) and the packed-quad
-sampler's weighted 4-tap reduce (#7/#8) against their plain versions, on
-the card.
+configuration's cost epilogues (TPU kernels #3-#6), the packed-quad
+sampler's weighted 4-tap reduce (#7/#8) and the probe kernels (#9-#13)
+against their plain versions, on the card.
 
 Marked ``cuda``: each test skips (inside the ``cuda`` fixture, never at
 collection) where there is no CUDA device. On a machine with one:
@@ -16,10 +16,18 @@ from casmvsnet_pl_tpu_torch.kernels import (cost_volume_bwd_cuda,
                                             cost_volume_cuda,
                                             groupwise_epilogue_bwd_cuda,
                                             groupwise_epilogue_cuda,
+                                            lane_gather_cuda,
+                                            lane_prefix_copy_cuda,
+                                            patch_epilogue_t_cuda,
+                                            row_gather_bulk_cuda,
+                                            row_gather_cp_async_cuda,
+                                            row_gather_ldg_cuda,
                                             tap_reduce_bwd_cuda,
                                             tap_reduce_cuda,
+                                            variance_dblk_cuda,
                                             variance_epilogue_bwd_cuda,
-                                            variance_epilogue_cuda)
+                                            variance_epilogue_cuda,
+                                            variance_v3_cuda)
 from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
 from casmvsnet_pl_tpu_torch.ops import tap_reduce as tr
 from casmvsnet_pl_tpu_torch.ops.grid_sample import (pack_quad,
@@ -30,6 +38,7 @@ from casmvsnet_pl_tpu_torch.ops.plane_sweep import (build_cost_volume,
                                                     plain_quad_cost_volume,
                                                     project_to_src, quad_rows,
                                                     warp_src_quad_batched)
+from casmvsnet_pl_tpu_torch.probes import epi3, epi5, gather
 
 pytestmark = pytest.mark.cuda
 
@@ -365,3 +374,143 @@ def test_warp_function_matches_plain_autograd(cuda, C):
     assert out_b.dtype == torch.bfloat16
     grads_b = torch.autograd.grad(out_b, (P, d), go.to(torch.bfloat16))
     assert all(torch.isfinite(t).all() for t in grads_b)
+
+
+# --- the probe kernels, TPU kernels #9-#13 (casmvsnet_pl_tpu_torch/probes) --
+
+
+@pytest.mark.parametrize("rows_per_block", [1024, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_lane_prefix_copy_matches_plain(cuda, C, dtype, rows_per_block):
+    """#11 bit-exact, on a row count that is no multiple of either block."""
+    g = torch.Generator(device="cuda").manual_seed(C)
+    rows = torch.randn((3, 8193 + C, 4 * C), generator=g, device="cuda"
+                       ).to(dtype)
+    before = lane_prefix_copy_cuda.launches
+    got = lane_prefix_copy_cuda(rows, rows_per_block)
+    assert lane_prefix_copy_cuda.launches == before + 1
+    assert torch.equal(got, epi3.plain_lane_prefix_copy(rows))
+
+
+@pytest.mark.parametrize("N", [1, 37, 100003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["ldg", "cp_async", "bulk"])
+def test_row_gather_forms_match_plain(cuda, form, dtype, N):
+    """#13's three row-gather forms bit-exact at rows of 16 to 512 bytes,
+    N no multiple of any tile; repeated indices included."""
+    kernel = gather.FORMS[form]
+    g = torch.Generator(device="cuda").manual_seed(N)
+    for width in (8, 32, 128):
+        table = torch.rand((1000, width), generator=g, device="cuda").to(dtype)
+        if width * table.element_size() % 16:
+            continue
+        idx = torch.randint(0, 1000, (N,), generator=g, device="cuda")
+        before = kernel.launches
+        got = kernel(table, idx)
+        assert kernel.launches == before + 1
+        assert torch.equal(got, gather.plain_row_gather(table, idx))
+        assert torch.equal(gather.row_gather(table, idx, form), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_gather_matches_plain(cuda, dtype):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    featT = torch.rand((9, 1031), generator=g, device="cuda").to(dtype)
+    idx = torch.randint(0, 1031, (129,), generator=g, device="cuda")
+    before = lane_gather_cuda.launches
+    got = lane_gather_cuda(featT, idx)
+    assert lane_gather_cuda.launches == before + 1
+    assert torch.equal(got, gather.plain_lane_gather(featT, idx))
+
+
+def _epilogue_rows(C, hw, seed):
+    """ref, rows (two source views, D=5) and ws at hw pixels on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ref = torch.rand((2, hw, C), generator=g, device="cuda")
+    rows = torch.rand((2, 2, 5, hw, 4 * C), generator=g, device="cuda")
+    ws = torch.rand((2, 2, 5, hw, 4), generator=g, device="cuda")
+    ws[torch.rand(ws.shape, generator=g, device="cuda") < 0.2] = 0.0
+    return ref, rows, ws
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_variance_probes_match_plain(cuda, C):
+    """#9 at dblk 1, 2 (no divisor of D=5), 4 and D, and #10 at every block
+    size: f32 equal to the plain variance epilogue to 1e-5, bf16 within 1
+    bf16 ulp of the plain f32 result; hw = 1003 is no multiple of a
+    block."""
+    ref, rows, ws = _epilogue_rows(C, 1003, C)
+    plain = ce.plain_variance_epilogue(ref, rows, ws)
+    rb, rowsb = ref.to(torch.bfloat16), rows.to(torch.bfloat16)
+    plain_b = ce.plain_variance_epilogue(rb.float(), rowsb.float(), ws)
+    runs = [(variance_dblk_cuda, d) for d in (1, 2, 4, 5)]
+    runs += [(variance_v3_cuda, t) for t in (64, 128, 256, 512, 1024)]
+    for kernel, arg in runs:
+        before = kernel.launches
+        torch.testing.assert_close(kernel(ref, rows, ws, arg), plain,
+                                   rtol=0, atol=1e-5)
+        got_b = kernel(rb, rowsb, ws, arg)
+        assert kernel.launches == before + 2
+        assert got_b.dtype == torch.bfloat16
+        assert bool(((got_b.float() - plain_b).abs()
+                     <= bf16_ulp(plain_b)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_patch_epilogue_t_matches_plain(cuda, G, dtype):
+    """#12 against its plain version, f32 out within 1e-5, at Ch 8 and 12
+    and hw = 1000, no multiple of the block; invalid samples (fx = -9)
+    included."""
+    g = torch.Generator(device="cuda").manual_seed(G)
+    for Ch in (8, 12):
+        rowsT = torch.randn((3, 16 * Ch, 1000), generator=g, device="cuda"
+                            ).to(dtype)
+        fx = torch.rand((3, G, 1000), generator=g, device="cuda") * 3.0
+        fy = torch.rand((3, G, 1000), generator=g, device="cuda") * 3.0
+        fx[torch.rand(fx.shape, generator=g, device="cuda") < 0.1] = -9.0
+        before = patch_epilogue_t_cuda.launches
+        got = patch_epilogue_t_cuda(rowsT, fx, fy)
+        assert patch_epilogue_t_cuda.launches == before + 1
+        assert got.shape == (3, G, Ch, 1000) and got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, epi5.plain_patch_epilogue_t(rowsT, fx, fy), rtol=0,
+            atol=1e-5)
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    rows = torch.rand((64, 4 * 8), device="cuda")
+    with pytest.raises(ValueError, match="16 bytes"):
+        lane_prefix_copy_cuda(rows.to(torch.bfloat16)[:, :16].contiguous())
+    with pytest.raises(ValueError, match="rows_per_block"):
+        lane_prefix_copy_cuda(rows, 512)
+    table = torch.rand((100, 8), device="cuda")
+    idx = torch.arange(10, device="cuda")
+    with pytest.raises(ValueError, match="int64"):
+        row_gather_ldg_cuda(table, idx.int())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        row_gather_cp_async_cuda(table[:, :3].contiguous(), idx)
+    with pytest.raises(ValueError, match="tile"):
+        row_gather_bulk_cuda(torch.rand((4, 4096), device="cuda"), idx[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather_cuda(table.t(), idx)
+    ref, rows5, ws = _epilogue_rows(8, 64, 1)
+    with pytest.raises(ValueError, match="dblk"):
+        variance_dblk_cuda(ref, rows5, ws, 0)
+    with pytest.raises(ValueError, match="S=2"):
+        variance_v3_cuda(ref, rows5[:, :1].contiguous(), ws[:, :1]
+                         .contiguous())
+    with pytest.raises(ValueError, match="threads"):
+        variance_v3_cuda(ref, rows5, ws, 96)
+    with pytest.raises(ValueError, match="autograd"):
+        variance_v3_cuda(ref.requires_grad_(True), rows5, ws)
+    rowsT = torch.rand((2, 128, 64), device="cuda")
+    fx = torch.rand((2, 8, 64), device="cuda")
+    with pytest.raises(ValueError, match="fx"):
+        patch_epilogue_t_cuda(rowsT, fx[:, :3].contiguous(),
+                              fx[:, :3].contiguous())
+    with pytest.raises(ValueError, match="fx and fy"):
+        patch_epilogue_t_cuda(rowsT, fx, fx.double())
+    with pytest.raises(ValueError, match="rowsT"):
+        patch_epilogue_t_cuda(rowsT[:, :100].contiguous(), fx, fx)

@@ -1,7 +1,7 @@
 """Cheap guards on the port: no JAX inside it, no CPU fallback on the card
 path, and its main paths (inference and a train step, default and quad
-configurations, and the packed-quad warp) run end to end on the CPU at a
-small size without launching a kernel."""
+configurations, the packed-quad warp, and the probes' plain versions) run
+end to end on the CPU at a small size without launching a kernel."""
 import ast
 import math
 import os
@@ -121,7 +121,7 @@ def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     before = _all_launches()
-    assert len(before) == 8
+    assert len(before) == 16
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)
@@ -197,3 +197,76 @@ def test_window_sampling_raises():
     fn, args = entry("cpu", img_wh=(64, 32), sampling="window")
     with pytest.raises(NotImplementedError, match="window"):
         fn(*args)
+
+
+PROBE_WRAPPERS = ["lane_prefix_copy_cuda", "row_gather_ldg_cuda",
+                  "row_gather_cp_async_cuda", "row_gather_bulk_cuda",
+                  "lane_gather_cuda", "variance_dblk_cuda", "variance_v3_cuda",
+                  "patch_epilogue_t_cuda"]
+
+
+@pytest.mark.parametrize("name", PROBE_WRAPPERS)
+def test_probe_kernels_refuse_cpu_tensors(name):
+    from casmvsnet_pl_tpu_torch import kernels
+
+    kernel = getattr(kernels, name)
+    ref, rows, ws = (torch.rand(1, 8, 8), torch.rand(1, 2, 4, 8, 32),
+                     torch.rand(1, 2, 4, 8, 4))
+    args = {"lane_prefix_copy_cuda": (torch.rand(37, 32),),
+            "lane_gather_cuda": (torch.rand(8, 64),
+                                 torch.zeros(16, dtype=torch.int64)),
+            "variance_dblk_cuda": (ref, rows, ws, 2),
+            "variance_v3_cuda": (ref, rows, ws),
+            "patch_epilogue_t_cuda": (torch.rand(2, 128, 64),
+                                      torch.rand(2, 8, 64),
+                                      torch.rand(2, 8, 64))}.get(
+        name, (torch.rand(37, 32), torch.zeros(5, dtype=torch.int64)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*args)
+    assert kernel.launches == 0
+
+
+def test_probe_mains_default_to_the_card():
+    """Each probe runs on the card unless its caller asks for the CPU."""
+    import inspect
+
+    from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather
+
+    for mod in (epi2, epi3, epi5, gather):
+        assert inspect.signature(mod.main).parameters["device"].default \
+            == "cuda", mod.__name__
+
+
+def test_probes_import_no_jax():
+    code = (
+        "import sys\n"
+        "from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'casmvsnet_pl_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
+    """On CPU tensors the probes' dispatchers run the plain versions and
+    launch nothing."""
+    from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
+    from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather
+
+    before = _all_launches()
+    ref, rows, ws = (torch.rand(1, 8, 8), torch.rand(1, 2, 4, 8, 32),
+                     torch.rand(1, 2, 4, 8, 4))
+    plain = ce.plain_variance_epilogue(ref, rows, ws)
+    assert torch.equal(epi2.variance_dblk(ref, rows, ws, 2), plain)
+    assert torch.equal(epi3.variance_v3(ref, rows, ws), plain)
+    assert torch.equal(epi3.lane_prefix_copy(rows), rows[..., :8])
+    table, idx = torch.rand(20, 16), torch.tensor([3, 0, 19, 3])
+    for form in gather.FORMS:
+        assert torch.equal(gather.row_gather(table, idx, form), table[idx])
+    assert torch.equal(gather.lane_gather(table.t(), idx), table.t()[:, idx])
+    rowsT, fx = torch.rand(2, 128, 64), torch.rand(2, 8, 64) * 3
+    assert torch.equal(epi5.patch_epilogue_t(rowsT, fx, fx),
+                       epi5.plain_patch_epilogue_t(rowsT, fx, fx))
+    assert _all_launches() == before
