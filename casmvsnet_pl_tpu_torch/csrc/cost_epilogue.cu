@@ -150,14 +150,19 @@ int launch(const void* ref, const void* rows, const void* ws, void* out,
 // else G) of the same dtype. All contiguous and 16-byte aligned. Returns 0,
 // a cudaError_t from the launch, or a negative code of sampling.cuh
 // (cost_volume_error_string names it).
-extern "C" int cost_epilogue_fwd(const void* ref, const void* rows,
-                                 const void* ws, void* out, int B, int S,
-                                 int D, int HW, int C, int G, int dtype,
-                                 void* stream) {
+static int cost_epilogue_fwd_typed(const void* ref, const void* rows,
+                                   const void* ws, void* out, int B, int S,
+                                   int D, int HW, int C, int G, int dtype,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
     return launch<T, decltype(c)::value, decltype(g)::value>(
         ref, rows, ws, out, B, S, D, HW, st);
   });
+}
+
+// cost_epilogue_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int cost_epilogue_fwd(const int64_t* args) {
+  return cv::call_packed(cost_epilogue_fwd_typed, args);
 }

@@ -218,15 +218,20 @@ int launch(const void* ref, const void* rows, const void* ws,
 // All contiguous and 16-byte aligned. Returns 0, a cudaError_t from the
 // launch, or a negative code of sampling.cuh (cost_volume_error_string
 // names it).
-extern "C" int cost_epilogue_bwd(const void* ref, const void* rows,
-                                 const void* ws, const void* grad, void* dref,
-                                 void* drows, void* dws, int B, int S, int D,
-                                 int HW, int C, int G, int dtype,
-                                 void* stream) {
+static int cost_epilogue_bwd_typed(const void* ref, const void* rows,
+                                   const void* ws, const void* grad, void* dref,
+                                   void* drows, void* dws, int B, int S, int D,
+                                   int HW, int C, int G, int dtype,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
     return launch<T, decltype(c)::value, decltype(g)::value>(
         ref, rows, ws, grad, dref, drows, dws, B, S, D, HW, st);
   });
+}
+
+// cost_epilogue_bwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int cost_epilogue_bwd(const int64_t* args) {
+  return cv::call_packed(cost_epilogue_bwd_typed, args);
 }

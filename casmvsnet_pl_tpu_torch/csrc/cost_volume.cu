@@ -131,16 +131,21 @@ int launch(const void* feats, const void* proj, const void* depth, void* out,
 // 16-byte aligned; proj (B, V-1, 3, 4) f32; depth (B, D, H, W) f32;
 // out (B, D, H, W, C if G == 1 else G) of the feats dtype.
 // Returns 0, a cudaError_t from the launch, or a negative code of this file.
-extern "C" int cost_volume_fwd(const void* feats, const void* proj,
-                               const void* depth, void* out, int B, int V,
-                               int H, int W, int D, int C, int G, int dtype,
-                               void* stream) {
+static int cost_volume_fwd_typed(const void* feats, const void* proj,
+                                 const void* depth, void* out, int B, int V,
+                                 int H, int W, int D, int C, int G, int dtype,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
     return launch<T, decltype(c)::value, decltype(g)::value>(
         feats, proj, depth, out, B, V, H, W, D, st);
   });
+}
+
+// cost_volume_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int cost_volume_fwd(const int64_t* args) {
+  return cv::call_packed(cost_volume_fwd_typed, args);
 }
 
 extern "C" const char* cost_volume_error_string(int code) {

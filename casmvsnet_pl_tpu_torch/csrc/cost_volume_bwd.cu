@@ -21,30 +21,38 @@
 // forward computes it (sampling.cuh): the kernel keeps no residual beyond
 // the forward's inputs, as the JAX custom VJP keeps only coordinates.
 //
-// Layout: one thread per (b, pixel, chunk of 8 channels), chunks fastest,
-// looping over the D depths. The reference view's gradient of the thread's
-// (pixel, chunk) is kept in registers over the whole loop and written once,
-// with no atomics. A source view's gradient is a scatter: the taps of many
-// (pixel, depth) samples land on one source pixel, so each tap's 8 values
-// are added with two float4 atomicAdds into a float32 buffer that the
-// caller zeroes.
-// Variance needs the mean m before any source tap's share is known, so it
-// samples the source views twice per depth (once for m, once to scatter);
-// the second pass reads taps that the first just brought into L1/L2.
-//
-// What bounds it on the card: the atomics. B*D*H*W*(V-1)*4*C f32 adds
+// What bounds it on the card: the scatter. B*D*H*W*(V-1)*4*C f32 adds
 // (0.34-0.67 G per level at B=2 for the default config) land on a source
-// gradient of a few MB per view that stays in the 50 MB L2, so the L2's
-// atomic rate, not device memory, is the limit: with one scalar atomic per
-// channel the kernel ran at ~85 G adds/s. The design keeps the reference
-// view (a third of the gradient at V=3) out of the atomics and writes it
-// once, adds 4 channels per atomic operation (float4, sm_90), and puts the
-// chunks of a pixel on neighbouring lanes so a warp's atomics fall on few
-// L2 sectors. Shared-memory tile accumulation before the global atomics is
-// the next step.
+// gradient of a few MB per view. Added one sample at a time, as float4
+// atomics into device memory, they run at the L2's atomic rate (~90 G
+// float4 operations/s), 20x the kernel's byte bound. The design cuts the
+// atomics, not their rate:
 //
-// Summation order: the atomics add in an order that changes from run to
-// run, so results agree with the plain version (ops/plane_sweep.py::
+// - Runs (variance, V = 3: the default config). A pixel's footprint moves
+//   by a few source pixels over all of its depths (at the lower levels the
+//   hypotheses are a few intervals wide), so a thread sums, in registers,
+//   the shares that consecutive depths send to the same 4 taps, and adds
+//   them to device memory only when the footprint moves: at the default
+//   config's levels, 5-16x fewer atomics. It samples each source view once
+//   per depth and keeps the samples in registers between the mean and the
+//   scatter.
+// - Other V, and groupwise, add every sample's taps at once; variance there
+//   samples twice (once for the mean, once to scatter). Runs are compiled
+//   for the one case only: their register arrays make an instantiation
+//   several times slower to build, and the library is built at first use.
+// - The reference view's gradient of a thread's (pixel, chunk) is kept in
+//   registers over all depths and written once, with no atomics.
+// - Layout: one thread per (b, pixel, chunk of 8 channels), chunks
+//   fastest, so a warp's atomics fall on few L2 sectors.
+// Designs measured and lost (PERF.md §6): accumulating in shared-memory
+// tiles first (sm_90 has no shared-memory float add: atomicAdd on a shared
+// float compiles to a compare-and-swap loop); keeping, when a run moves by
+// one pixel, the 2 taps it shares with the next (fewer atomics, ~45 more
+// registers); two threads per (pixel, chunk), each scattering one view; and
+// 4 blocks an SM asked of the register allocator (spills).
+//
+// Summation order: atomics add in an order that changes from run to run, so
+// results agree with the plain version (ops/plane_sweep.py::
 // plain_cost_volume_bwd) to rounding, not to the bit.
 #include "sampling.cuh"
 
@@ -55,26 +63,9 @@ using namespace cv;
 constexpr int kThreads = 128;
 constexpr int kN = 8;  // channels per thread
 
-// dst[q * C + c0 + c] += w_t * d[c] for each in-image tap q of footprint f,
-// as two 16-byte vector atomics per tap (sm_90 adds a float4 in one
-// operation; the 8 channels of a chunk are 32-byte aligned).
-__device__ __forceinline__ void scatter(float* __restrict__ dst, int C,
-                                        int c0, const Footprint& f, int H,
-                                        int W, const float (&d)[kN]) {
-  for_each_tap(f, H, W, [&](int64_t q, float w) {
-    float4* p = reinterpret_cast<float4*>(dst + q * C + c0);
-#pragma unroll
-    for (int i = 0; i < kN / 4; ++i) {
-      atomicAdd(p + i, make_float4(__fmul_rn(d[4 * i], w),
-                                   __fmul_rn(d[4 * i + 1], w),
-                                   __fmul_rn(d[4 * i + 2], w),
-                                   __fmul_rn(d[4 * i + 3], w)));
-    }
-  });
-}
-
-// G == 1: variance. G > 1: groupwise correlation.
-template <typename T, int C, int G>
+// G == 1: variance. G > 1: groupwise correlation. S: 2 for variance at
+// V = 3 (samples cached in registers, runs), else 0 (runtime V).
+template <typename T, int C, int G, int S>
 __global__ void __launch_bounds__(kThreads)
     cost_volume_bwd_kernel(const T* __restrict__ feats,
                            const float* __restrict__ proj,
@@ -83,10 +74,12 @@ __global__ void __launch_bounds__(kThreads)
                            float* __restrict__ grad, int V, int H, int W,
                            int D) {
   static_assert(C % G == 0 && C % kN == 0, "bad (C, G)");
+  static_assert(S == 0 || (S == 2 && G == 1), "S is 2 (variance) or 0");
   constexpr bool kVariance = G == 1;
   constexpr int kOut = kVariance ? C : G;
   constexpr int kChunks = C / kN;
   constexpr int kPer = C / G;
+  constexpr int kSrc = S > 0 ? S : 1;
 
   const int64_t HW = static_cast<int64_t>(H) * W;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -97,6 +90,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = blockIdx.y;
   const float xf = static_cast<float>(pix % W);
   const float yf = static_cast<float>(pix / W);
+  const int nsrc = S > 0 ? S : V - 1;
 
   const int64_t view = HW * C;
   const T* fb = feats + b * V * view;
@@ -110,20 +104,92 @@ __global__ void __launch_bounds__(kThreads)
   const float two_v = __fdiv_rn(2.f, static_cast<float>(V));
   const float inv_kv = __frcp_rn(static_cast<float>(kPer * (V - 1)));
 
+  // vals added to channels c0.. of source view v at pixel (y, x): two
+  // float4 atomics (sm_90 adds a float4 in one operation)
+  const auto add_tap = [&](int v, int y, int x, const float(&vals)[kN]) {
+    float4* p = reinterpret_cast<float4*>(
+        gb + (v + 1) * view + (static_cast<int64_t>(y) * W + x) * C + c0);
+#pragma unroll
+    for (int i = 0; i < kN / 4; ++i) {
+      atomicAdd(p + i, make_float4(vals[4 * i], vals[4 * i + 1],
+                                   vals[4 * i + 2], vals[4 * i + 3]));
+    }
+  };
+
+  // runs: per source view the run's top-left tap and the shares summed at
+  // its 4 taps (k = 0 (y0, x0), 1 (y0, x0+1), 2 (y0+1, x0), 3 (y0+1, x0+1))
+  float run_x[kSrc], run_y[kSrc], acc[kSrc][4][kN];
+#pragma unroll
+  for (int v = 0; v < kSrc; ++v) {
+    run_x[v] = run_y[v] = __int_as_float(0x7fc00000);  // NaN: no run yet
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) acc[v][k][c] = 0.f;
+    }
+  }
+  // adds view v's run sums to its source gradient and clears them
+  const auto flush = [&](int v) {
+    const Footprint f{run_x[v], run_y[v], 1.f, 1.f, 1.f, 1.f};
+    for_each_tap_xy(f, H, W, [&](int k, int y, int x, float) {
+      add_tap(v, y, x, acc[v][k]);
+    });
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < kN; ++c) acc[v][k][c] = 0.f;
+    }
+  };
+
+  // d (one sample's share, per channel) spread onto the taps of f in view v
+  const auto scatter = [&](int v, const Footprint& f, const float(&d)[kN]) {
+    if constexpr (S > 0) {
+      // moved (or no run: NaN). Tested on the differences: the same answer
+      // as comparing the coordinates, in faster code (7 % at L2, measured)
+      const float dx = __fsub_rn(f.x0, run_x[v]);
+      const float dy = __fsub_rn(f.y0, run_y[v]);
+      if (dx != 0.f || dy != 0.f) {
+        flush(v);
+        run_x[v] = f.x0;
+        run_y[v] = f.y0;
+      }
+      const float w[4] = {__fmul_rn(f.wy0, f.wx0), __fmul_rn(f.wy0, f.wx1),
+                          __fmul_rn(f.wy1, f.wx0), __fmul_rn(f.wy1, f.wx1)};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          acc[v][k][c] = __fmaf_rn(d[c], w[k], acc[v][k][c]);
+        }
+      }
+    } else {
+      for_each_tap_xy(f, H, W, [&](int, int y, int x, float w) {
+        float vals[kN];
+#pragma unroll
+        for (int c = 0; c < kN; ++c) vals[c] = __fmul_rn(d[c], w);
+        add_tap(v, y, x, vals);
+      });
+    }
+  };
+
   for (int d = 0; d < D; ++d) {
     const int64_t bdp = (b * D + d) * HW + pix;
     const float dep = depth[bdp];
     const T* go = grad_out + bdp * kOut;
-    float g[kN], o[kN], dv[kN];
+    float g[kN], dv[kN];
     if constexpr (kVariance) {
       float m[kN];
 #pragma unroll
       for (int c = 0; c < kN; ++c) m[c] = ref[c];
-      for (int v = 1; v < V; ++v) {
-        const Footprint f = project(pb + (v - 1) * 12, xf, yf, dep, H, W);
-        sample<T, kN>(fb + v * view, C, c0, f, H, W, o);
+      Footprint f[kSrc];
+      float o[kSrc][kN];
 #pragma unroll
-        for (int c = 0; c < kN; ++c) m[c] = __fadd_rn(m[c], o[c]);
+      for (int v = 0; v < nsrc; ++v) {
+        const int s = S > 0 ? v : 0;
+        f[s] = project(pb + v * 12, xf, yf, dep, H, W);
+        sample<T, kN>(fb + (v + 1) * view, C, c0, f[s], H, W, o[s]);
+#pragma unroll
+        for (int c = 0; c < kN; ++c) m[c] = __fadd_rn(m[c], o[s][c]);
       }
       load_row<T, kN>(go + c0, g);
 #pragma unroll
@@ -132,12 +198,18 @@ __global__ void __launch_bounds__(kThreads)
         g[c] = __fmul_rn(g[c], two_v);
         dref[c] = __fadd_rn(dref[c], __fmul_rn(g[c], __fsub_rn(ref[c], m[c])));
       }
-      for (int v = 1; v < V; ++v) {
-        const Footprint f = project(pb + (v - 1) * 12, xf, yf, dep, H, W);
-        sample<T, kN>(fb + v * view, C, c0, f, H, W, o);
 #pragma unroll
-        for (int c = 0; c < kN; ++c) dv[c] = __fmul_rn(g[c], __fsub_rn(o[c], m[c]));
-        scatter(gb + v * view, C, c0, f, H, W, dv);
+      for (int v = 0; v < nsrc; ++v) {
+        const int s = S > 0 ? v : 0;
+        if constexpr (S == 0) {   // sample again: V is not known here
+          f[0] = project(pb + v * 12, xf, yf, dep, H, W);
+          sample<T, kN>(fb + (v + 1) * view, C, c0, f[0], H, W, o[0]);
+        }
+#pragma unroll
+        for (int c = 0; c < kN; ++c) {
+          dv[c] = __fmul_rn(g[c], __fsub_rn(o[s][c], m[c]));
+        }
+        scatter(v, f[s], dv);
       }
     } else {
       float so[kN];
@@ -147,21 +219,29 @@ __global__ void __launch_bounds__(kThreads)
         dv[c] = __fmul_rn(g[c], ref[c]);
         so[c] = 0.f;
       }
-      for (int v = 1; v < V; ++v) {
-        const Footprint f = project(pb + (v - 1) * 12, xf, yf, dep, H, W);
-        sample<T, kN>(fb + v * view, C, c0, f, H, W, o);
+#pragma unroll
+      for (int v = 0; v < nsrc; ++v) {
+        float o[kN];
+        const Footprint f = project(pb + v * 12, xf, yf, dep, H, W);
+        sample<T, kN>(fb + (v + 1) * view, C, c0, f, H, W, o);
 #pragma unroll
         for (int c = 0; c < kN; ++c) so[c] = __fadd_rn(so[c], o[c]);
-        scatter(gb + v * view, C, c0, f, H, W, dv);
+        scatter(v, f, dv);
       }
 #pragma unroll
-      for (int c = 0; c < kN; ++c) dref[c] = __fadd_rn(dref[c], __fmul_rn(g[c], so[c]));
+      for (int c = 0; c < kN; ++c) {
+        dref[c] = __fadd_rn(dref[c], __fmul_rn(g[c], so[c]));
+      }
     }
+  }
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int v = 0; v < kSrc; ++v) flush(v);
   }
   store_row<float, kN>(gb + pix * C + c0, dref);
 }
 
-template <typename T, int C, int G>
+template <typename T, int C, int G, int S>
 int launch(const void* feats, const void* proj, const void* depth,
            const void* grad_out, void* grad, int B, int V, int H, int W,
            int D, cudaStream_t stream) {
@@ -169,7 +249,7 @@ int launch(const void* feats, const void* proj, const void* depth,
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff || B > 65535) return kBadShape;
   const dim3 grid(static_cast<unsigned>(blocks), B);
-  cost_volume_bwd_kernel<T, C, G><<<grid, kThreads, 0, stream>>>(
+  cost_volume_bwd_kernel<T, C, G, S><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(feats), static_cast<const float*>(proj),
       static_cast<const float*>(depth), static_cast<const T*>(grad_out),
       static_cast<float*>(grad), V, H, W, D);
@@ -184,14 +264,26 @@ int launch(const void* feats, const void* proj, const void* depth,
 // caller. All contiguous and 16-byte aligned. Adds the gradient with
 // respect to feats into grad. Returns 0, a cudaError_t from the launch, or
 // a negative code of sampling.cuh (cost_volume_error_string names it).
-extern "C" int cost_volume_bwd(const void* feats, const void* proj,
-                               const void* depth, const void* grad_out,
-                               void* grad, int B, int V, int H, int W, int D,
-                               int C, int G, int dtype, void* stream) {
+static int cost_volume_bwd_typed(const void* feats, const void* proj,
+                                 const void* depth, const void* grad_out,
+                                 void* grad, int B, int V, int H, int W, int D,
+                                 int C, int G, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
-    return launch<T, decltype(c)::value, decltype(g)::value>(
-        feats, proj, depth, grad_out, grad, B, V, H, W, D, st);
+    constexpr int kC = decltype(c)::value, kG = decltype(g)::value;
+    if constexpr (kG == 1) {
+      if (V == 3) {
+        return launch<T, kC, 1, 2>(feats, proj, depth, grad_out, grad, B, V,
+                                   H, W, D, st);
+      }
+    }
+    return launch<T, kC, kG, 0>(feats, proj, depth, grad_out, grad, B, V, H,
+                                W, D, st);
   });
+}
+
+// cost_volume_bwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int cost_volume_bwd(const int64_t* args) {
+  return cv::call_packed(cost_volume_bwd_typed, args);
 }

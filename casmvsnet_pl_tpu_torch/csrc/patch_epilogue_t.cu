@@ -128,9 +128,9 @@ int launch_groups(const void* rowsT, const void* fx, const void* fy,
 // G, HW) f32; out (n_i, G, Ch, HW) f32; all contiguous. G in {1, 2, 4, 8};
 // Ch a positive multiple of 4. Returns 0, a cudaError_t from the launch, or
 // a negative code of sampling.cuh.
-extern "C" int patch_epilogue_t_fwd(const void* rowsT, const void* fx,
-                                    const void* fy, void* out, int n_i, int G,
-                                    int Ch, int HW, int dtype, void* stream) {
+static int patch_epilogue_t_fwd_typed(const void* rowsT, const void* fx,
+                                      const void* fy, void* out, int n_i, int G,
+                                      int Ch, int HW, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Ch <= 0 || Ch % kCh) return kUnsupported;
   if (n_i > 65535 || Ch / kCh > 65535) return kBadShape;
@@ -142,4 +142,9 @@ extern "C" int patch_epilogue_t_fwd(const void* rowsT, const void* fx,
                                         st);
   }
   return kUnsupported;
+}
+
+// patch_epilogue_t_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int patch_epilogue_t_fwd(const int64_t* args) {
+  return cv::call_packed(patch_epilogue_t_fwd_typed, args);
 }

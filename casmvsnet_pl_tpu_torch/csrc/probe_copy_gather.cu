@@ -288,9 +288,9 @@ int grid_for(int64_t threads, unsigned* blocks) {
 // rows (n_rows, 4 * prefix_bytes) bytes, out (n_rows, prefix_bytes); both
 // 16-byte aligned, prefix_bytes a multiple of 16; rows_per_block 1024 or
 // 8192. Returns 0, a cudaError_t or a negative code of sampling.cuh.
-extern "C" int lane_prefix_copy_fwd(const void* rows, void* out,
-                                    int64_t n_rows, int prefix_bytes,
-                                    int rows_per_block, void* stream) {
+static int lane_prefix_copy_fwd_typed(const void* rows, void* out,
+                                      int64_t n_rows, int prefix_bytes,
+                                      int rows_per_block, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (prefix_bytes <= 0 || prefix_bytes % 16) return kUnsupported;
   const int vec = prefix_bytes / 16;
@@ -299,12 +299,17 @@ extern "C" int lane_prefix_copy_fwd(const void* rows, void* out,
   return kUnsupported;
 }
 
+// lane_prefix_copy_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int lane_prefix_copy_fwd(const int64_t* args) {
+  return cv::call_packed(lane_prefix_copy_fwd_typed, args);
+}
+
 // table (n_table, row_bytes), idx (n_out,) int64, out (n_out, row_bytes);
 // 16-byte aligned, row_bytes a multiple of 16 (at most kBulkTileBytes for
 // the bulk form). form 0: ldg, 1: cp_async, 2: bulk.
-extern "C" int row_gather_fwd(const void* table, const void* idx, void* out,
-                              int64_t n_table, int64_t n_out, int row_bytes,
-                              int form, void* stream) {
+static int row_gather_fwd_typed(const void* table, const void* idx, void* out,
+                                int64_t n_table, int64_t n_out, int row_bytes,
+                                int form, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (row_bytes <= 0 || row_bytes % 16) return kUnsupported;
   const int vec = row_bytes / 16;
@@ -341,10 +346,15 @@ extern "C" int row_gather_fwd(const void* table, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// row_gather_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int row_gather_fwd(const int64_t* args) {
+  return cv::call_packed(row_gather_fwd_typed, args);
+}
+
 // featT (R, L), idx (J,) int64, out (R, J); elements of elem_bytes 2 or 4.
-extern "C" int lane_gather_fwd(const void* featT, const void* idx, void* out,
-                               int64_t R, int L, int J, int elem_bytes,
-                               void* stream) {
+static int lane_gather_fwd_typed(const void* featT, const void* idx, void* out,
+                                 int64_t R, int L, int J, int elem_bytes,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n_out = R * J;
   unsigned blocks = 0;
@@ -362,4 +372,9 @@ extern "C" int lane_gather_fwd(const void* featT, const void* idx, void* out,
     return kUnsupported;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// lane_gather_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int lane_gather_fwd(const int64_t* args) {
+  return cv::call_packed(lane_gather_fwd_typed, args);
 }

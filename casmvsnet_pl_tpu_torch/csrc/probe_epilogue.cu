@@ -152,10 +152,10 @@ int launch_v3(const void* ref, const void* rows, const void* ws, void* out,
 // dtype. All contiguous and 16-byte aligned; C in {8, 16, 32}; 1 <= dblk.
 // Returns 0, a cudaError_t from the launch, or a negative code of
 // sampling.cuh (cost_volume_error_string names it).
-extern "C" int variance_dblk_fwd(const void* ref, const void* rows,
-                                 const void* ws, void* out, int B, int S,
-                                 int D, int HW, int C, int dblk, int dtype,
-                                 void* stream) {
+static int variance_dblk_fwd_typed(const void* ref, const void* rows,
+                                   const void* ws, void* out, int B, int S,
+                                   int D, int HW, int C, int dblk, int dtype,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dblk < 1) return kUnsupported;
   const int d_blocks = (D + dblk - 1) / dblk;
@@ -175,11 +175,16 @@ extern "C" int variance_dblk_fwd(const void* ref, const void* rows,
   });
 }
 
+// variance_dblk_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int variance_dblk_fwd(const int64_t* args) {
+  return cv::call_packed(variance_dblk_fwd_typed, args);
+}
+
 // As variance_dblk_fwd with S = 2 source views; threads per block in {64,
 // 128, 256, 512, 1024}.
-extern "C" int variance_v3_fwd(const void* ref, const void* rows,
-                               const void* ws, void* out, int B, int D, int HW,
-                               int C, int threads, int dtype, void* stream) {
+static int variance_v3_fwd_typed(const void* ref, const void* rows,
+                                 const void* ws, void* out, int B, int D, int HW,
+                                 int C, int threads, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > 65535 || B > 65535) return kBadShape;
   return cv::dispatch(dtype, C, 1, [&](auto t, auto c, auto) {
@@ -195,4 +200,9 @@ extern "C" int variance_v3_fwd(const void* ref, const void* rows,
       default: return kUnsupported;
     }
   });
+}
+
+// variance_v3_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int variance_v3_fwd(const int64_t* args) {
+  return cv::call_packed(variance_v3_fwd_typed, args);
 }

@@ -17,6 +17,7 @@
 
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 namespace cv {
 
@@ -140,24 +141,34 @@ __device__ __forceinline__ Footprint project(const float* __restrict__ P,
   return f;
 }
 
-// Calls fn(q, w) for each tap of f that lies inside the image, q being the
-// tap's pixel index and w its weight (per-tap zeros padding), in the order
-// (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1, x0+1). The test is on the float
-// coordinates, so far-outside or NaN coordinates never wrap.
+// Calls fn(k, y, x, w) for each tap k of f that lies inside the image, (y,
+// x) being the tap's pixel and w its weight (per-tap zeros padding), in the
+// order k = 0 (y0, x0), 1 (y0, x0+1), 2 (y0+1, x0), 3 (y0+1, x0+1). The
+// test is on the float coordinates, so far-outside or NaN coordinates never
+// wrap.
 template <typename F>
-__device__ __forceinline__ void for_each_tap(const Footprint& f, int H, int W,
-                                             F&& fn) {
-  const auto tap = [&](float yt, float xt, float w) {
+__device__ __forceinline__ void for_each_tap_xy(const Footprint& f, int H,
+                                                int W, F&& fn) {
+  const auto tap = [&](int k, float yt, float xt, float w) {
     if (xt >= 0.f && xt <= static_cast<float>(W - 1) && yt >= 0.f &&
         yt <= static_cast<float>(H - 1)) {
-      fn(static_cast<int64_t>(yt) * W + static_cast<int64_t>(xt), w);
+      fn(k, static_cast<int>(yt), static_cast<int>(xt), w);
     }
   };
   const float x1 = f.x0 + 1.f, y1 = f.y0 + 1.f;
-  tap(f.y0, f.x0, __fmul_rn(f.wy0, f.wx0));
-  tap(f.y0, x1, __fmul_rn(f.wy0, f.wx1));
-  tap(y1, f.x0, __fmul_rn(f.wy1, f.wx0));
-  tap(y1, x1, __fmul_rn(f.wy1, f.wx1));
+  tap(0, f.y0, f.x0, __fmul_rn(f.wy0, f.wx0));
+  tap(1, f.y0, x1, __fmul_rn(f.wy0, f.wx1));
+  tap(2, y1, f.x0, __fmul_rn(f.wy1, f.wx0));
+  tap(3, y1, x1, __fmul_rn(f.wy1, f.wx1));
+}
+
+// As for_each_tap_xy, with fn(q, w), q the tap's pixel index y * W + x.
+template <typename F>
+__device__ __forceinline__ void for_each_tap(const Footprint& f, int H, int W,
+                                             F&& fn) {
+  for_each_tap_xy(f, H, W, [&](int, int y, int x, float w) {
+    fn(static_cast<int64_t>(y) * W + x, w);
+  });
 }
 
 // o = the bilinear sample of N channels (from channel offset c0 of rows of
@@ -209,6 +220,30 @@ int dispatch(int dtype, int C, int G, F&& f) {
   if (dtype == 0) return dispatch_channels<float>(C, G, f);
   if (dtype == 1) return dispatch_channels<__nv_bfloat16>(C, G, f);
   return kUnsupported;
+}
+
+// The entries' calling convention (kernels/cost_volume.py::_Kernel._launch):
+// one array of int64, every argument of the typed entry in order, pointers
+// and the stream as their addresses. One ctypes argument converts in a
+// fraction of the time of a dozen.
+template <typename P>
+P from_i64(int64_t v) {
+  if constexpr (std::is_pointer_v<P>) {
+    return reinterpret_cast<P>(static_cast<intptr_t>(v));
+  } else {
+    return static_cast<P>(v);
+  }
+}
+
+template <typename... P, size_t... I>
+int call_packed(int (*fn)(P...), const int64_t* a, std::index_sequence<I...>) {
+  return fn(from_i64<P>(a[I])...);
+}
+
+// fn(a[0], a[1], ...) with each a[i] converted to fn's parameter type.
+template <typename... P>
+int call_packed(int (*fn)(P...), const int64_t* a) {
+  return call_packed(fn, a, std::index_sequence_for<P...>{});
 }
 
 }  // namespace cv

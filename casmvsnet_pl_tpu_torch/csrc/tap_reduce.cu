@@ -141,8 +141,8 @@ int64_t blocks_for(int64_t N, int C) {
 // f32. All contiguous and 16-byte aligned, N >= 1. Returns 0, a
 // cudaError_t from the launch, or a negative code of sampling.cuh
 // (cost_volume_error_string names it).
-extern "C" int tap_reduce_fwd(const void* rows, const void* w, void* out,
-                              int64_t N, int C, int dtype, void* stream) {
+static int tap_reduce_fwd_typed(const void* rows, const void* w, void* out,
+                                int64_t N, int C, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch_tap(dtype, C, [&](auto t, auto c) {
     using T = typename decltype(t)::type;
@@ -157,12 +157,17 @@ extern "C" int tap_reduce_fwd(const void* rows, const void* w, void* out,
   });
 }
 
+// tap_reduce_fwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int tap_reduce_fwd(const int64_t* args) {
+  return cv::call_packed(tap_reduce_fwd_typed, args);
+}
+
 // rows and w as tap_reduce_fwd; g (N, C) f32. Writes drows (N, 4C) of the
 // rows' dtype and dw (N, 4) f32, every element once. Returns as
 // tap_reduce_fwd.
-extern "C" int tap_reduce_bwd(const void* rows, const void* w, const void* g,
-                              void* drows, void* dw, int64_t N, int C,
-                              int dtype, void* stream) {
+static int tap_reduce_bwd_typed(const void* rows, const void* w, const void* g,
+                                void* drows, void* dw, int64_t N, int C,
+                                int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch_tap(dtype, C, [&](auto t, auto c) {
     using T = typename decltype(t)::type;
@@ -176,4 +181,9 @@ extern "C" int tap_reduce_bwd(const void* rows, const void* w, const void* g,
         static_cast<float*>(dw), N);
     return static_cast<int>(cudaGetLastError());
   });
+}
+
+// tap_reduce_bwd_typed's arguments packed as int64 (sampling.cuh).
+extern "C" int tap_reduce_bwd(const int64_t* args) {
+  return cv::call_packed(tap_reduce_bwd_typed, args);
 }

@@ -20,21 +20,19 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import _CHANNELS, _DTYPE_CODES, _GROUPS, _LIBRARY, _Kernel
+from .cost_volume import (_CHANNELS, _DTYPE_CODES, _GROUPS, _LIBRARY, _Kernel,
+                          check_device, check_layout)
 
 Tensor = torch.Tensor
 
 
 def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
-                  groups: int, grad: Tensor | None = None) -> None:
+                  groups: int, grad: Tensor | None = None) -> int:
     """Raise on anything the kernels do not take (shapes as in
-    :meth:`EpilogueKernel.__call__`)."""
+    :meth:`EpilogueKernel.__call__`); returns the device index."""
     tensors = (ref, rows, ws) + (() if grad is None else (grad,))
-    if not all(t.is_cuda and t.device == ref.device for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} records no autograd graph; differentiate "
-                         "through ops.plane_sweep.quad_cost_volume")
+    dev = check_device(name, tensors, "; differentiate through "
+                       "ops.plane_sweep.quad_cost_volume")
     if ref.ndim != 3:
         raise ValueError(f"ref must be (B, HW, C), got {tuple(ref.shape)}")
     B, hw, C = ref.shape
@@ -58,19 +56,16 @@ def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
         if tuple(grad.shape) != want or grad.dtype != ref.dtype:
             raise ValueError(f"grad must be {ref.dtype} {want}, got "
                              f"{grad.dtype} {tuple(grad.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: every tensor must be 16-byte aligned")
+    check_layout(name, tensors)
+    return dev
 
 
 class _Epilogue(_Kernel):
     """A cost epilogue kernel: the variance one (groups == 1 only) or the
     groupwise one (groups > 1 only)."""
 
-    def __init__(self, library, name: str, groupwise: bool):
-        super().__init__(library)
-        self.name = name
+    def __init__(self, library, name: str, entry: str, groupwise: bool):
+        super().__init__(library, name, entry)
         self.groupwise = groupwise
 
     def _check_groups(self, groups: int) -> None:
@@ -90,20 +85,13 @@ class EpilogueKernel(_Epilogue):
         (B, S, D, HW, 4) f32 tap weights. Returns (B, D, HW, C) (variance)
         or (B, D, HW, G) in ref's dtype, with no autograd graph."""
         self._check_groups(groups)
-        _check_inputs(self.name, ref, rows, ws, groups)
+        dev = _check_inputs(self.name, ref, rows, ws, groups)
         B, hw, C = ref.shape
         S, D = rows.shape[1:3]
-        out = torch.empty((B, D, hw, C if groups == 1 else groups),
-                          dtype=ref.dtype, device=ref.device)
-        lib = self.build()
-        with torch.cuda.device(ref.device):
-            err = lib.cost_epilogue_fwd(
-                ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), B, S, D, hw, C, groups,
-                _DTYPE_CODES[ref.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        self.library.check(err, self.name)
-        self.launches += 1
+        out = ref.new_empty((B, D, hw, C if groups == 1 else groups))
+        self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), B, S, D, hw, C, groups,
+                     _DTYPE_CODES[ref.dtype])
         return out
 
 
@@ -118,31 +106,26 @@ class EpilogueBwdKernel(_Epilogue):
         f32, d rows in the rows' dtype, d ws f32), each element written
         once (no atomics: the same result from run to run)."""
         self._check_groups(groups)
-        _check_inputs(self.name, ref, rows, ws, groups, grad)
+        dev = _check_inputs(self.name, ref, rows, ws, groups, grad)
         B, hw, C = ref.shape
         S, D = rows.shape[1:3]
-        d_ref = torch.empty(ref.shape, dtype=torch.float32,
-                            device=ref.device)
+        d_ref = ref.new_empty(ref.shape, dtype=torch.float32)
         d_rows = torch.empty_like(rows)
         d_ws = torch.empty_like(ws)
-        lib = self.build()
-        with torch.cuda.device(ref.device):
-            err = lib.cost_epilogue_bwd(
-                ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
-                grad.data_ptr(), d_ref.data_ptr(), d_rows.data_ptr(),
-                d_ws.data_ptr(), B, S, D, hw, C, groups,
-                _DTYPE_CODES[ref.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        self.library.check(err, self.name)
-        self.launches += 1
+        self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                     grad.data_ptr(), d_ref.data_ptr(), d_rows.data_ptr(),
+                     d_ws.data_ptr(), B, S, D, hw, C, groups,
+                     _DTYPE_CODES[ref.dtype])
         return d_ref, d_rows, d_ws
 
 
-variance_epilogue_cuda = EpilogueKernel(_LIBRARY, "variance_epilogue_cuda",
-                                        groupwise=False)
-groupwise_epilogue_cuda = EpilogueKernel(_LIBRARY, "groupwise_epilogue_cuda",
-                                         groupwise=True)
+variance_epilogue_cuda = EpilogueKernel(
+    _LIBRARY, "variance_epilogue_cuda", "cost_epilogue_fwd", groupwise=False)
+groupwise_epilogue_cuda = EpilogueKernel(
+    _LIBRARY, "groupwise_epilogue_cuda", "cost_epilogue_fwd", groupwise=True)
 variance_epilogue_bwd_cuda = EpilogueBwdKernel(
-    _LIBRARY, "variance_epilogue_bwd_cuda", groupwise=False)
+    _LIBRARY, "variance_epilogue_bwd_cuda", "cost_epilogue_bwd",
+    groupwise=False)
 groupwise_epilogue_bwd_cuda = EpilogueBwdKernel(
-    _LIBRARY, "groupwise_epilogue_bwd_cuda", groupwise=True)
+    _LIBRARY, "groupwise_epilogue_bwd_cuda", "cost_epilogue_bwd",
+    groupwise=True)

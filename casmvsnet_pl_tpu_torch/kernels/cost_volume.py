@@ -21,8 +21,12 @@ The two wrappers are raw launches and record no autograd graph;
 ``torch.autograd.Function``. At first use the sources in ``csrc/`` are
 compiled by one ``nvcc`` call for ``sm_90a``, in parallel, into a shared
 library in ``_build/`` inside this package, keyed by a hash of the sources
-and flags, and loaded with ``ctypes``. There is no fallback: on a CUDA
-tensor a wrapper launches its kernel or raises.
+and flags, and loaded with ``ctypes``. Every wrapper of the package
+launches through :meth:`_Kernel._launch`: its C function bound once and
+called with one argument, every value packed into an int64 array; the
+device made current only when it is not; the raw current stream. So a
+launch costs the host about what a PyTorch operator does. There is no
+fallback: on a CUDA tensor a wrapper launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -93,40 +98,6 @@ class KernelLibrary:
                                    f"{' '.join(cmd)}\n{proc.stderr}")
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
-        lib.cost_volume_fwd.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 8
-                                        + [ctypes.c_void_p])
-        lib.cost_volume_fwd.restype = ctypes.c_int
-        lib.cost_volume_bwd.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 8
-                                        + [ctypes.c_void_p])
-        lib.cost_volume_bwd.restype = ctypes.c_int
-        lib.cost_epilogue_fwd.argtypes = ([ctypes.c_void_p] * 4
-                                          + [ctypes.c_int] * 7
-                                          + [ctypes.c_void_p])
-        lib.cost_epilogue_fwd.restype = ctypes.c_int
-        lib.cost_epilogue_bwd.argtypes = ([ctypes.c_void_p] * 7
-                                          + [ctypes.c_int] * 7
-                                          + [ctypes.c_void_p])
-        lib.cost_epilogue_bwd.restype = ctypes.c_int
-        lib.tap_reduce_fwd.argtypes = ([ctypes.c_void_p] * 3
-                                       + [ctypes.c_int64] + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p])
-        lib.tap_reduce_fwd.restype = ctypes.c_int
-        lib.tap_reduce_bwd.argtypes = ([ctypes.c_void_p] * 5
-                                       + [ctypes.c_int64] + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p])
-        lib.tap_reduce_bwd.restype = ctypes.c_int
-        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for fn, args in (
-                ("lane_prefix_copy_fwd", [P, P, I64, I, I, P]),
-                ("row_gather_fwd", [P, P, P, I64, I64, I, I, P]),
-                ("lane_gather_fwd", [P, P, P, I64, I, I, I, P]),
-                ("variance_dblk_fwd", [P] * 4 + [I] * 7 + [P]),
-                ("variance_v3_fwd", [P] * 4 + [I] * 6 + [P]),
-                ("patch_epilogue_t_fwd", [P] * 4 + [I] * 5 + [P])):
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
         lib.cost_volume_error_string.argtypes = [ctypes.c_int]
         lib.cost_volume_error_string.restype = ctypes.c_char_p
         self._lib = lib
@@ -139,16 +110,44 @@ class KernelLibrary:
                                .decode())
 
 
+# torch._C's current device and raw current stream, bound at the first launch
+# (the CPU build of torch has neither)
+_get_device = _raw_stream = None
+
+
+def check_device(name: str, tensors, hint: str) -> int:
+    """The CUDA device index of ``tensors``; raise unless they all lie on
+    that one CUDA device and none records an autograd graph (``hint`` ends
+    the message)."""
+    dev = tensors[0].get_device()
+    grad = torch.is_grad_enabled()
+    for t in tensors:
+        if dev < 0 or t.get_device() != dev:
+            raise ValueError(f"{name} takes CUDA tensors on one device")
+        if grad and t.requires_grad:
+            raise ValueError(f"{name} records no autograd graph{hint}")
+    return dev
+
+
+def check_layout(name: str, tensors, aligned=None,
+                 what: str = "every tensor") -> None:
+    """Raise unless ``tensors`` are contiguous and ``aligned`` (default: all
+    of them) start on a 16-byte boundary."""
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    for t in tensors if aligned is None else aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+
+
 def _check_inputs(name: str, feats: Tensor, proj_mats: Tensor,
-                  depth_values: Tensor, groups: int, *extra: Tensor) -> None:
+                  depth_values: Tensor, groups: int, *extra: Tensor) -> int:
     """Raise on anything the kernels do not take (shapes as in
-    :meth:`CostVolumeKernel.__call__`)."""
+    :meth:`CostVolumeKernel.__call__`); returns the device index."""
     tensors = (feats, proj_mats, depth_values, *extra)
-    if not all(t.is_cuda and t.device == feats.device for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} records no autograd graph; differentiate "
-                         "through ops.plane_sweep.build_cost_volume")
+    dev = check_device(name, tensors, "; differentiate through "
+                       "ops.plane_sweep.build_cost_volume")
     if feats.ndim != 5:
         raise ValueError(f"feats must be (B, V, H, W, C), got "
                          f"{tuple(feats.shape)}")
@@ -167,15 +166,12 @@ def _check_inputs(name: str, feats: Tensor, proj_mats: Tensor,
         raise ValueError(f"proj_mats must be f32 {(B, V - 1, 3, 4)}, got "
                          f"{proj_mats.dtype} {tuple(proj_mats.shape)}")
     if depth_values.ndim != 4 or depth_values.shape[0] != B \
-            or depth_values.shape[2:] != (H, W) \
+            or depth_values.shape[2] != H or depth_values.shape[3] != W \
             or depth_values.dtype != torch.float32:
         raise ValueError(f"depth_values must be f32 (B, D, {H}, {W}), got "
                          f"{depth_values.dtype} {tuple(depth_values.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (feats, *extra)):
-        raise ValueError(f"{name}: feats and gradients must be 16-byte "
-                         "aligned")
+    check_layout(name, tensors, (feats, *extra), "feats and gradients")
+    return dev
 
 
 class _Kernel:
@@ -183,11 +179,15 @@ class _Kernel:
 
     ``launches`` goes up by one at each kernel launch and nowhere else, so
     a caller can reset it and show that a run went through the kernel.
+    Every wrapper launches through :meth:`_launch`.
     """
 
-    def __init__(self, library: KernelLibrary):
+    def __init__(self, library: KernelLibrary, name: str, entry: str):
         self.library = library
+        self.name = name
+        self.entry = entry      # the library's C function
         self.launches = 0
+        self._fn = self._pack = None
 
     def build(self) -> ctypes.CDLL:
         return self.library.build()
@@ -195,6 +195,28 @@ class _Kernel:
     @property
     def build_log(self) -> str:
         return self.library.build_log
+
+    def _launch(self, device: int, *args: int) -> None:
+        """Call the C entry with ``args`` (pointers as ints) and the current
+        stream of CUDA device ``device``, made the current device for the
+        call; raise if the launch failed, else count it."""
+        global _get_device, _raw_stream
+        if self._fn is None:   # int entry(const int64_t* args): every
+            # argument packed as int64 (csrc/sampling.cuh::call_packed)
+            fn = getattr(self.build(), self.entry)
+            fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+            self._fn = fn
+            self._pack = struct.Struct(f"={len(args) + 1}q").pack
+            _get_device = torch._C._cuda_getDevice
+            _raw_stream = torch._C._cuda_getCurrentRawStream
+        if _get_device() == device:
+            err = self._fn(self._pack(*args, _raw_stream(device)))
+        else:
+            with torch.cuda.device(device):
+                err = self._fn(self._pack(*args, _raw_stream(device)))
+        if err:
+            self.library.check(err, self.name)
+        self.launches += 1
 
 
 class CostVolumeKernel(_Kernel):
@@ -207,21 +229,13 @@ class CostVolumeKernel(_Kernel):
         groups 1 (variance) or G in {2, 4, 8} (groupwise).
         Returns (B, D, H, W, C|G) in the feats dtype, with no autograd
         graph."""
-        _check_inputs("cost_volume_cuda", feats, proj_mats, depth_values,
-                      groups)
+        dev = _check_inputs(self.name, feats, proj_mats, depth_values, groups)
         B, V, H, W, C = feats.shape
         D = depth_values.shape[1]
-        out = torch.empty((B, D, H, W, C if groups == 1 else groups),
-                          dtype=feats.dtype, device=feats.device)
-        lib = self.build()
-        with torch.cuda.device(feats.device):
-            err = lib.cost_volume_fwd(
-                feats.data_ptr(), proj_mats.data_ptr(),
-                depth_values.data_ptr(), out.data_ptr(), B, V, H, W, D, C,
-                groups, _DTYPE_CODES[feats.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        self.library.check(err, "cost_volume")
-        self.launches += 1
+        out = feats.new_empty((B, D, H, W, C if groups == 1 else groups))
+        self._launch(dev, feats.data_ptr(), proj_mats.data_ptr(),
+                     depth_values.data_ptr(), out.data_ptr(), B, V, H, W, D, C,
+                     groups, _DTYPE_CODES[feats.dtype])
         return out
 
 
@@ -236,29 +250,24 @@ class CostVolumeBwdKernel(_Kernel):
         gradient of its output: (B, D, H, W, C|G) in the feats dtype.
         Returns d feats (B, V, H, W, C) in the feats dtype, accumulated in
         float32 and cast once."""
-        _check_inputs("cost_volume_bwd_cuda", feats, proj_mats, depth_values,
-                      groups, grad_out)
+        dev = _check_inputs(self.name, feats, proj_mats, depth_values, groups,
+                            grad_out)
         B, V, H, W, C = feats.shape
         D = depth_values.shape[1]
         want = (B, D, H, W, C if groups == 1 else groups)
-        if tuple(grad_out.shape) != want or grad_out.dtype != feats.dtype:
+        if grad_out.shape != want or grad_out.dtype != feats.dtype:
             raise ValueError(f"grad_out must be {feats.dtype} {want}, got "
                              f"{grad_out.dtype} {tuple(grad_out.shape)}")
-        grad = torch.zeros(feats.shape, dtype=torch.float32,
-                           device=feats.device)
-        lib = self.build()
-        with torch.cuda.device(feats.device):
-            err = lib.cost_volume_bwd(
-                feats.data_ptr(), proj_mats.data_ptr(),
-                depth_values.data_ptr(), grad_out.data_ptr(),
-                grad.data_ptr(), B, V, H, W, D, C, groups,
-                _DTYPE_CODES[feats.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        self.library.check(err, "cost_volume_bwd")
-        self.launches += 1
+        grad = feats.new_zeros(feats.shape, dtype=torch.float32)
+        self._launch(dev, feats.data_ptr(), proj_mats.data_ptr(),
+                     depth_values.data_ptr(), grad_out.data_ptr(),
+                     grad.data_ptr(), B, V, H, W, D, C, groups,
+                     _DTYPE_CODES[feats.dtype])
         return grad.to(feats.dtype)
 
 
 _LIBRARY = KernelLibrary()
-cost_volume_cuda = CostVolumeKernel(_LIBRARY)
-cost_volume_bwd_cuda = CostVolumeBwdKernel(_LIBRARY)
+cost_volume_cuda = CostVolumeKernel(_LIBRARY, "cost_volume_cuda",
+                                    "cost_volume_fwd")
+cost_volume_bwd_cuda = CostVolumeBwdKernel(_LIBRARY, "cost_volume_bwd_cuda",
+                                           "cost_volume_bwd")

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from .cost_epilogue import _check_inputs as _check_epilogue
-from .cost_volume import _DTYPE_CODES, _LIBRARY, _Kernel
+from .cost_volume import (_DTYPE_CODES, _LIBRARY, _Kernel, check_device,
+                          check_layout)
 
 Tensor = torch.Tensor
 
@@ -35,18 +36,12 @@ BULK_MAX_ROW_BYTES = 8192            # the bulk form's shared-memory tile
 _GATHER_FORMS = {"ldg": 0, "cp_async": 1, "bulk": 2}
 
 
-def _check(name: str, *tensors: Tensor) -> None:
+def _check(name: str, *tensors: Tensor) -> int:
     """Raise unless the tensors are on one CUDA device, contiguous, 16-byte
-    aligned and outside any autograd graph."""
-    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} records no autograd graph (the probe "
-                         "kernels have no VJP)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: every tensor must be 16-byte aligned")
+    aligned and outside any autograd graph; returns the device index."""
+    dev = check_device(name, tensors, " (the probe kernels have no VJP)")
+    check_layout(name, tensors)
+    return dev
 
 
 def _check_dtype(name: str, t: Tensor, what: str) -> None:
@@ -56,32 +51,19 @@ def _check_dtype(name: str, t: Tensor, what: str) -> None:
 
 
 def _check_idx(name: str, idx: Tensor) -> None:
-    if idx.ndim != 1 or idx.dtype != torch.int64:
+    if idx.ndim != 1 or idx.dtype is not torch.int64:
         raise ValueError(f"{name}: idx must be int64 (N,), got {idx.dtype} "
                          f"{tuple(idx.shape)}")
 
 
-class _ProbeKernel(_Kernel):
-    def __init__(self, library, name: str):
-        super().__init__(library)
-        self.name = name
-
-    def _launch(self, fn: str, *args) -> None:
-        lib = self.build()
-        err = getattr(lib, fn)(*args,
-                               torch.cuda.current_stream().cuda_stream)
-        self.library.check(err, self.name)
-        self.launches += 1
-
-
-class LanePrefixCopyKernel(_ProbeKernel):
+class LanePrefixCopyKernel(_Kernel):
     """TPU kernel #11, ``csrc/probe_copy_gather.cu``."""
 
     def __call__(self, rows: Tensor, rows_per_block: int = 1024) -> Tensor:
         """rows (..., 4C) f32|bf16, C times the element size a multiple of
         16 bytes. Returns rows[..., :C] as a new contiguous tensor;
         ``rows_per_block`` in {1024, 8192} rows per block (the probe's T)."""
-        _check(self.name, rows)
+        dev = _check(self.name, rows)
         _check_dtype(self.name, rows, "rows")
         if rows.ndim < 1 or rows.shape[-1] % 4:
             raise ValueError(f"{self.name}: rows must be (..., 4C), got "
@@ -94,29 +76,27 @@ class LanePrefixCopyKernel(_ProbeKernel):
         if rows_per_block not in COPY_ROWS_PER_BLOCK:
             raise ValueError(f"{self.name}: rows_per_block {rows_per_block} "
                              f"not in {COPY_ROWS_PER_BLOCK}")
-        out = torch.empty(rows.shape[:-1] + (C,), dtype=rows.dtype,
-                          device=rows.device)
+        out = rows.new_empty(rows.shape[:-1] + (C,))
         n = rows.numel() // rows.shape[-1]
         if n:
-            with torch.cuda.device(rows.device):
-                self._launch("lane_prefix_copy_fwd", rows.data_ptr(),
-                             out.data_ptr(), n, prefix, rows_per_block)
+            self._launch(dev, rows.data_ptr(), out.data_ptr(), n, prefix,
+                         rows_per_block)
         return out
 
 
-class RowGatherKernel(_ProbeKernel):
+class RowGatherKernel(_Kernel):
     """TPU kernel #13's row gather in one of three Hopper forms ("ldg",
     "cp_async", "bulk"), ``csrc/probe_copy_gather.cu``."""
 
     def __init__(self, library, name: str, form: str):
-        super().__init__(library, name)
+        super().__init__(library, name, "row_gather_fwd")
         self.form = form
 
     def __call__(self, table: Tensor, idx: Tensor) -> Tensor:
         """table (n, R) f32|bf16 with rows of a multiple of 16 bytes (at
         most 8192 for the bulk form); idx (N,) int64 in [0, n). Returns
         table[idx] (N, R); an index outside the table is a device fault."""
-        _check(self.name, table, idx)
+        dev = _check(self.name, table, idx)
         _check_dtype(self.name, table, "table")
         _check_idx(self.name, idx)
         if table.ndim != 2:
@@ -129,41 +109,36 @@ class RowGatherKernel(_ProbeKernel):
         if self.form == "bulk" and row_bytes > BULK_MAX_ROW_BYTES:
             raise ValueError(f"{self.name}: rows of {row_bytes} bytes exceed "
                              f"the {BULK_MAX_ROW_BYTES}-byte tile")
-        out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
-                          device=table.device)
+        out = table.new_empty((idx.shape[0], table.shape[1]))
         if idx.shape[0]:
-            with torch.cuda.device(table.device):
-                self._launch("row_gather_fwd", table.data_ptr(),
-                             idx.data_ptr(), out.data_ptr(), table.shape[0],
-                             idx.shape[0], row_bytes,
-                             _GATHER_FORMS[self.form])
+            self._launch(dev, table.data_ptr(), idx.data_ptr(),
+                         out.data_ptr(), table.shape[0], idx.shape[0],
+                         row_bytes, _GATHER_FORMS[self.form])
         return out
 
 
-class LaneGatherKernel(_ProbeKernel):
+class LaneGatherKernel(_Kernel):
     """TPU kernel #13's lane gather, ``csrc/probe_copy_gather.cu``."""
 
     def __call__(self, featT: Tensor, idx: Tensor) -> Tensor:
         """featT (R, L) f32|bf16; idx (J,) int64 in [0, L). Returns
         featT[:, idx] (R, J)."""
-        _check(self.name, featT, idx)
+        dev = _check(self.name, featT, idx)
         _check_dtype(self.name, featT, "featT")
         _check_idx(self.name, idx)
         if featT.ndim != 2:
             raise ValueError(f"{self.name}: featT must be (R, L), got "
                              f"{tuple(featT.shape)}")
         R, L = featT.shape
-        out = torch.empty((R, idx.shape[0]), dtype=featT.dtype,
-                          device=featT.device)
-        if out.numel():
-            with torch.cuda.device(featT.device):
-                self._launch("lane_gather_fwd", featT.data_ptr(),
-                             idx.data_ptr(), out.data_ptr(), R, L,
-                             idx.shape[0], featT.element_size())
+        J = idx.shape[0]
+        out = featT.new_empty((R, J))
+        if R and J:
+            self._launch(dev, featT.data_ptr(), idx.data_ptr(),
+                         out.data_ptr(), R, L, J, featT.element_size())
         return out
 
 
-class VarianceDblkKernel(_ProbeKernel):
+class VarianceDblkKernel(_Kernel):
     """TPU kernel #9, ``csrc/probe_epilogue.cu``."""
 
     def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor,
@@ -172,21 +147,20 @@ class VarianceDblkKernel(_ProbeKernel):
         HW, C), rows (B, S, D, HW, 4C), ws (B, S, D, HW, 4) f32); each
         thread walks ``dblk`` >= 1 consecutive depths. Returns the variance
         (B, D, HW, C) in ref's dtype."""
-        _check(self.name, ref, rows, ws)
+        dev = _check(self.name, ref, rows, ws)
         _check_epilogue(self.name, ref, rows, ws, 1)
         if int(dblk) < 1:
             raise ValueError(f"{self.name}: dblk={dblk} must be >= 1")
         B, hw, C = ref.shape
         S, D = rows.shape[1:3]
-        out = torch.empty((B, D, hw, C), dtype=ref.dtype, device=ref.device)
-        with torch.cuda.device(ref.device):
-            self._launch("variance_dblk_fwd", ref.data_ptr(), rows.data_ptr(),
-                         ws.data_ptr(), out.data_ptr(), B, S, D, hw, C,
-                         int(dblk), _DTYPE_CODES[ref.dtype])
+        out = ref.new_empty((B, D, hw, C))
+        self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), B, S, D, hw, C, int(dblk),
+                     _DTYPE_CODES[ref.dtype])
         return out
 
 
-class VarianceV3Kernel(_ProbeKernel):
+class VarianceV3Kernel(_Kernel):
     """TPU kernel #10, ``csrc/probe_epilogue.cu``."""
 
     def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor,
@@ -194,7 +168,7 @@ class VarianceV3Kernel(_ProbeKernel):
         """As :class:`VarianceDblkKernel` with exactly two source views (V
         = 3) and ``threads`` in {64, 128, 256, 512, 1024} per block (the
         probe's T)."""
-        _check(self.name, ref, rows, ws)
+        dev = _check(self.name, ref, rows, ws)
         _check_epilogue(self.name, ref, rows, ws, 1)
         if rows.shape[1] != 2:
             raise ValueError(f"{self.name} takes S=2 source views, got "
@@ -204,15 +178,14 @@ class VarianceV3Kernel(_ProbeKernel):
                              f"{V3_THREADS}")
         B, hw, C = ref.shape
         D = rows.shape[2]
-        out = torch.empty((B, D, hw, C), dtype=ref.dtype, device=ref.device)
-        with torch.cuda.device(ref.device):
-            self._launch("variance_v3_fwd", ref.data_ptr(), rows.data_ptr(),
-                         ws.data_ptr(), out.data_ptr(), B, D, hw, C, threads,
-                         _DTYPE_CODES[ref.dtype])
+        out = ref.new_empty((B, D, hw, C))
+        self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), B, D, hw, C, threads,
+                     _DTYPE_CODES[ref.dtype])
         return out
 
 
-class PatchEpilogueTKernel(_ProbeKernel):
+class PatchEpilogueTKernel(_Kernel):
     """TPU kernel #12, ``csrc/patch_epilogue_t.cu``."""
 
     def __call__(self, rowsT: Tensor, fx: Tensor, fy: Tensor) -> Tensor:
@@ -220,7 +193,7 @@ class PatchEpilogueTKernel(_ProbeKernel):
         patch rows, pixels last; fx, fy (n_i, g, HW) f32 fractional
         coordinates in the patch, g in {1, 2, 4, 8}. Returns (n_i, g, Ch,
         HW) f32."""
-        _check(self.name, rowsT, fx, fy)
+        dev = _check(self.name, rowsT, fx, fy)
         _check_dtype(self.name, rowsT, "rowsT")
         if rowsT.ndim != 3 or rowsT.shape[1] % 64:
             raise ValueError(f"{self.name}: rowsT must be (n_i, 16 Ch, HW) "
@@ -239,25 +212,27 @@ class PatchEpilogueTKernel(_ProbeKernel):
                              f"{tuple(fx.shape)} and {fy.dtype} "
                              f"{tuple(fy.shape)}")
         g, Ch = fx.shape[1], L // 16
-        out = torch.empty((n_i, g, Ch, hw), dtype=torch.float32,
-                          device=rowsT.device)
+        out = rowsT.new_empty((n_i, g, Ch, hw), dtype=torch.float32)
         if out.numel():
-            with torch.cuda.device(rowsT.device):
-                self._launch("patch_epilogue_t_fwd", rowsT.data_ptr(),
-                             fx.data_ptr(), fy.data_ptr(), out.data_ptr(),
-                             n_i, g, Ch, hw, _DTYPE_CODES[rowsT.dtype])
+            self._launch(dev, rowsT.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                         out.data_ptr(), n_i, g, Ch, hw,
+                         _DTYPE_CODES[rowsT.dtype])
         return out
 
 
-lane_prefix_copy_cuda = LanePrefixCopyKernel(_LIBRARY, "lane_prefix_copy_cuda")
+lane_prefix_copy_cuda = LanePrefixCopyKernel(
+    _LIBRARY, "lane_prefix_copy_cuda", "lane_prefix_copy_fwd")
 row_gather_ldg_cuda = RowGatherKernel(_LIBRARY, "row_gather_ldg_cuda", "ldg")
 row_gather_cp_async_cuda = RowGatherKernel(_LIBRARY,
                                            "row_gather_cp_async_cuda",
                                            "cp_async")
 row_gather_bulk_cuda = RowGatherKernel(_LIBRARY, "row_gather_bulk_cuda",
                                        "bulk")
-lane_gather_cuda = LaneGatherKernel(_LIBRARY, "lane_gather_cuda")
-variance_dblk_cuda = VarianceDblkKernel(_LIBRARY, "variance_dblk_cuda")
-variance_v3_cuda = VarianceV3Kernel(_LIBRARY, "variance_v3_cuda")
-patch_epilogue_t_cuda = PatchEpilogueTKernel(_LIBRARY,
-                                             "patch_epilogue_t_cuda")
+lane_gather_cuda = LaneGatherKernel(_LIBRARY, "lane_gather_cuda",
+                                    "lane_gather_fwd")
+variance_dblk_cuda = VarianceDblkKernel(_LIBRARY, "variance_dblk_cuda",
+                                        "variance_dblk_fwd")
+variance_v3_cuda = VarianceV3Kernel(_LIBRARY, "variance_v3_cuda",
+                                    "variance_v3_fwd")
+patch_epilogue_t_cuda = PatchEpilogueTKernel(
+    _LIBRARY, "patch_epilogue_t_cuda", "patch_epilogue_t_fwd")

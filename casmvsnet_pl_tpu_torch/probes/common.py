@@ -164,6 +164,22 @@ def combine_ops(S: int, C: int, groups: int) -> int:
     return 3 * C * S + 4 * C if groups == 1 else 2 * C * S + C
 
 
+def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
+    """(bytes, float32 operations) of K1, or of K2 with ``backward``, at one
+    level: features, projections and depths read once, the volume (K1) or
+    its gradient (K2) read or written once, and K2's float32 feature
+    gradient written once. Per sample and source view: 29 operations of
+    projection and tap weights and 8C of taps. The backward's own work is
+    those samples once and 8C for the scatter."""
+    S, n = V - 1, B * D * h * w
+    nbytes = (B * V * h * w * C * itemsize + B * S * 12 * 4 + n * 4
+              + n * (C if groups == 1 else groups) * itemsize)
+    per = S * (29 + 8 * C) + combine_ops(S, C, groups)
+    if not backward:
+        return nbytes, n * per
+    return nbytes + B * V * h * w * C * 4, n * (per + 8 * C * S)
+
+
 def epilogue_work(B, S, D, hw, C, groups, itemsize, backward=False):
     """(bytes, float32 operations) of #3/#5, or of #4/#6 with ``backward``:
     ref, rows and weights read once and the volume written once; the

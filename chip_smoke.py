@@ -99,7 +99,11 @@ counted over phases 23-26:
      ulp of the plain f32 result;
  26. #12 (``probes/epi5.py``): the transposed patch epilogue per level and
      channel split (f32 out <= 1e-5 abs), and the probe's four samplers of
-     one view (quad, validfold, tfma, the kernel) in ms and ns per sample.
+     one view (quad, validfold, tfma, the kernel) in ms and ns per sample;
+ 27. the host's cost of a launch: the time to enqueue one call
+     (``probes/host.py``) of the lane gather, the ldg row gather, K1 and K2
+     at small shapes, beside ``index_select`` at the gathers' probe shapes
+     and the allocations K1 and K2 make (``new_empty``, ``new_zeros``).
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
@@ -118,8 +122,8 @@ import time
 
 import torch
 
-from casmvsnet_pl_tpu_torch.probes.common import (bf16_ulp, bound, combine_ops,
-                                                  cuda_ms, default_levels,
+from casmvsnet_pl_tpu_torch.probes.common import (bf16_ulp, bound, cuda_ms,
+                                                  cv_work, default_levels,
                                                   epilogue_work, plane_levels)
 
 DEVICE = "cuda"
@@ -350,22 +354,6 @@ def check_quad_forward(entry) -> dict:
         raise AssertionError(f"f32 quad depth_0 vs default {dd} mm")
     return forward_main_path(entry, QUAD_FWD, " sampling=quad",
                              sampling="quad")
-
-
-def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
-    """(bytes, float32 operations) of K1, or of K2 with ``backward``, at one
-    level: features, projections and depths read once, the volume (K1) or
-    its gradient (K2) read or written once, and K2's float32 feature
-    gradient written once. Per sample and source view: 29 operations of
-    projection and tap weights and 8C of taps. The backward's own work is
-    those samples once (K2 computes them twice) and 8C for the scatter."""
-    S, n = V - 1, B * D * h * w
-    nbytes = (B * V * h * w * C * itemsize + B * S * 12 * 4 + n * 4
-              + n * (C if groups == 1 else groups) * itemsize)
-    per = S * (29 + 8 * C) + combine_ops(S, C, groups)
-    if not backward:
-        return nbytes, n * per
-    return nbytes + B * V * h * w * C * 4, n * (per + 8 * C * S)
 
 
 def time_forward(entry, card, label: str = "", **kw) -> None:
@@ -675,13 +663,13 @@ def time_kernels(inputs, inputs2, card) -> dict:
                         device=DEVICE).to(torch.bfloat16)
         gb = torch.randn((2, D, h, w, C), generator=g,
                          device=DEVICE).to(torch.bfloat16)
-        atomics = 2 * D * h * w * 2 * 4 * C
+        adds = 2 * D * h * w * 2 * 4 * C
         time_level(sums, "cost_volume_bwd_cuda",
                    f"L{l} bf16 feats (2,3,{h},{w},{C}) D={D}",
                    lambda: k.cost_volume_bwd_cuda(fb, proj, dv, gb),
                    lambda: plain_cost_volume_bwd(fb, proj, dv, gb), (20, 3),
                    cv_work(2, 3, D, h, w, C, 1, 2, backward=True), card,
-                   f"{atomics / 1e9!r} G f32 atomics; ")
+                   f"{adds / 1e9!r} G f32 tap shares (before runs); ")
     for batch, data in ((1, inputs), (2, inputs2)):
         backward = batch == 2
         for (l, C, D, h, w), (ref, rows, ws) in quad_level_rows(data, batch,
@@ -999,6 +987,21 @@ def probe_summary(results) -> dict:
     return out
 
 
+HOST_CALLS = ("lane_gather_cuda", "index_select (lane gather's shape)",
+              "row_gather_ldg_cuda", "index_select (row gather's shape)",
+              "cost_volume_cuda", "t.new_empty (8, 128)",
+              "cost_volume_bwd_cuda", "t.new_zeros (1, 3, 16, 16, 8)")
+
+
+def host_costs(card) -> None:
+    """Phase 27: host_us of HOST_CALLS, in turns; printed on one line."""
+    from casmvsnet_pl_tpu_torch.probes import host
+    calls = host.wrapper_calls(DEVICE)
+    times = host.measure({n: calls[n] for n in HOST_CALLS})
+    print("host_us, to enqueue one call: " + ", ".join(
+        f"{n} {us!r} us" for n, us in times.items()) + f" [{card}]")
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -1071,6 +1074,7 @@ def main() -> int:
     del views
     torch.cuda.empty_cache()
     probe_results, paths["probes"] = probes_path(card)
+    host_costs(card)
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the

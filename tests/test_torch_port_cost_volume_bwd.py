@@ -20,19 +20,40 @@ from casmvsnet_pl_tpu.ops.plane_sweep import build_cost_volume as jax_bcv
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (build_cost_volume,
                                                     plain_cost_volume,
                                                     plain_cost_volume_bwd)
-from test_torch_port_cuda import GEOMETRIES
+from test_torch_port_cuda import GEOMETRIES, per_pixel_depths, translations
 
 
 def _scene(rng, C, D, tx, ty, dmin, dint, B=2, V=3, H=12, W=16):
     feats = rng.rand(B, V, H, W, C).astype(np.float32)
-    proj = np.tile(np.hstack([np.eye(3), np.zeros((3, 1))]).astype(np.float32),
-                   (B, V - 1, 1, 1))
-    proj[..., 0, 3] = tx
-    proj[..., 1, 3] = ty
-    proj[1, :, :3, :3] += rng.randn(V - 1, 3, 3).astype(np.float32) * 0.01
+    proj = translations(rng, B, V, tx, ty)
     dv = ((dmin + dint * np.arange(D, dtype=np.float32))[None, :, None, None]
           * np.ones((B, D, H, W), np.float32))
     return feats, proj, dv
+
+
+def _scenes(rng, scene, C, D, H=12, W=16):
+    """(name, (feats, proj, dv)) of a case: "planes", the fronto-parallel
+    sweeps of GEOMETRIES; "per_pixel_depth", depth windows recentred per
+    pixel on an upsampled coarser map with a step edge, as the cascade's
+    lower levels build them; "v5_b2", five views and a depth range of its
+    own per sample."""
+    if scene == "planes":
+        for name, geo in GEOMETRIES.items():
+            yield name, _scene(rng, C, D, **geo)
+    elif scene == "per_pixel_depth":
+        feats = rng.rand(2, 3, H, W, C).astype(np.float32)
+        yield scene, (feats, translations(rng, 2, 3, 2000.0, 300.0),
+                      per_pixel_depths(rng, 2, D, H, W, 5.3))
+    else:
+        feats = rng.rand(2, 5, H, W, C).astype(np.float32)
+        proj = translations(rng, 2, 5, np.array([1500.0, -1500.0, 600.0,
+                                                 -900.0]),
+                            np.array([200.0, -300.0, 700.0, 0.0]))
+        dmin = np.array([430.0, 700.0], np.float32)[:, None, None, None]
+        dint = np.array([2.65, 5.3], np.float32)[:, None, None, None]
+        steps = np.arange(D, dtype=np.float32)[None, :, None, None]
+        yield scene, (feats, proj, np.broadcast_to(
+            dmin + dint * steps, (2, D, H, W)).astype(np.float32))
 
 
 @functools.partial(jax.jit, static_argnames=("groups", "sampling"))
@@ -42,14 +63,21 @@ def _jax_vjp(feats, proj, dv, cot, groups, sampling):
     return vjp(cot)[0]
 
 
-@pytest.mark.parametrize("sampling", ["patch", "quad"])
-@pytest.mark.parametrize("groups", [1, 4])
-@pytest.mark.parametrize("C", [8, 16, 32])
-def test_plain_bwd_matches_jax_grad(C, groups, sampling):
+# the plane sweeps with both JAX samplers; the per-pixel depth windows of
+# the lower levels and the five-view batch against the patch sampler, whose
+# backward K2 replaces
+_CASES = [pytest.param(C, groups, sampling, scene, id="-".join(
+    ([] if scene == "planes" else [scene]) + [str(C), str(groups), sampling]))
+    for scene in ("planes", "per_pixel_depth", "v5_b2")
+    for C in (8, 16, 32) for groups in (1, 4)
+    for sampling in (("patch", "quad") if scene == "planes" else ("patch",))]
+
+
+@pytest.mark.parametrize("C,groups,sampling,scene", _CASES)
+def test_plain_bwd_matches_jax_grad(C, groups, sampling, scene):
     rng = np.random.RandomState(C + 3 * groups)
     D = 8
-    for name, geo in GEOMETRIES.items():
-        feats, proj, dv = _scene(rng, C, D, **geo)
+    for name, (feats, proj, dv) in _scenes(rng, scene, C, D):
         B, V, H, W, _ = feats.shape
         cot = rng.randn(B, D, H, W, C if groups == 1 else groups
                         ).astype(np.float32)

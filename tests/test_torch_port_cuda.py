@@ -30,6 +30,7 @@ from casmvsnet_pl_tpu_torch.kernels import (cost_volume_bwd_cuda,
                                             variance_v3_cuda)
 from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
 from casmvsnet_pl_tpu_torch.ops import tap_reduce as tr
+from casmvsnet_pl_tpu_torch.ops import get_depth_values, resize_bilinear
 from casmvsnet_pl_tpu_torch.ops.grid_sample import (pack_quad,
                                                     plain_grid_sample_quad)
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (build_cost_volume,
@@ -59,14 +60,37 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(C, D, tx, ty, dmin, dint, B=2, V=3, H=20, W=36, seed=0):
-    rng = np.random.RandomState(seed)
-    feats = rng.rand(B, V, H, W, C).astype(np.float32)
+def translations(rng, B, V, tx, ty):
+    """(B, V-1, 3, 4) f32 projections: identity rotation, translation (tx,
+    ty) per source view (scalars or (V-1,)), and the second sample's
+    rotations perturbed by 0.01 N(0, 1) from ``rng``."""
     proj = np.tile(np.hstack([np.eye(3), np.zeros((3, 1))]).astype(np.float32),
                    (B, V - 1, 1, 1))
     proj[..., 0, 3] = tx
     proj[..., 1, 3] = ty
     proj[1, :, :3, :3] += rng.randn(V - 1, 3, 3).astype(np.float32) * 0.01
+    return proj
+
+
+def per_pixel_depths(rng, B, D, H, W, interval):
+    """(B, D, H, W) f32 depth windows as the cascade's lower levels build
+    them: a smooth coarser map with a step edge (each sample 30 deeper than
+    the last), upsampled x2 and recentred (ops.get_depth_values)."""
+    h, w = (H + 1) // 2, (W + 1) // 2
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    coarse = (450.0 + 15.0 * np.sin(xx / 3.0 + rng.rand())
+              + 10.0 * np.cos(yy / 4.0) + 40.0 * (xx > w / 2))
+    coarse = coarse[None] + 30.0 * np.arange(B, dtype=np.float32)[:, None,
+                                                                   None]
+    prev = resize_bilinear(torch.from_numpy(coarse.astype(np.float32))[
+        ..., None], (H, W))[..., 0]
+    return get_depth_values(prev, D, interval).numpy()
+
+
+def _scene(C, D, tx, ty, dmin, dint, B=2, V=3, H=20, W=36, seed=0):
+    rng = np.random.RandomState(seed)
+    feats = rng.rand(B, V, H, W, C).astype(np.float32)
+    proj = translations(rng, B, V, tx, ty)
     dv = ((dmin + dint * np.arange(D, dtype=np.float32))[None, :, None, None]
           * np.ones((B, D, H, W), np.float32))
     return (torch.from_numpy(a).cuda() for a in (feats, proj, dv))
@@ -148,6 +172,65 @@ def test_autograd_function_matches_plain_autograd(cuda, groups):
     out_b = build_cost_volume(fb, proj, dv, groups)
     gb, = torch.autograd.grad(out_b, fb, go.to(torch.bfloat16))
     assert out_b.dtype == gb.dtype == torch.bfloat16
+
+
+def _bwd_scene(scene, C, seed=0):
+    """(feats, proj, dv) on the card, B=2: "per_pixel", L1-like per-pixel
+    depth windows (D=32, a 3-px spread of disparity); "v5", five views, a
+    depth range per sample; "odd", 21x37 pixels, no multiple of a block;
+    "wide", a source camera that magnifies the reference 12x over an
+    L2-like span (D=48), so that a pixel's footprint jumps by many pixels
+    from one depth to the next and leaves the image."""
+    rng = np.random.RandomState(seed)
+    V, H, W = (5, 24, 40) if scene == "v5" else (3, 21, 37) \
+        if scene == "odd" else (3, 24, 40)
+    feats = rng.rand(2, V, H, W, C).astype(np.float32)
+    if scene == "v5":
+        proj = translations(rng, 2, V, np.array([1500.0, -1500.0, 600.0,
+                                                 -900.0]),
+                            np.array([200.0, -300.0, 700.0, 0.0]))
+        steps = np.arange(16, dtype=np.float32)[None, :, None, None]
+        dv = np.array([430.0, 700.0], np.float32)[:, None, None, None] \
+            + np.array([2.65, 5.3], np.float32)[:, None, None, None] * steps
+        dv = np.broadcast_to(dv, (2, 16, H, W))
+    elif scene == "wide":
+        proj = translations(rng, 2, V, 9000.0, 0.0)
+        proj[..., 0, :3] = [12.0, 0.0, -11.0 * (W - 1) / 2]
+        proj[..., 1, :3] = [0.0, 12.0, -11.0 * (H - 1) / 2]
+        dv = np.broadcast_to((425.0 + 10.6 * np.arange(48, dtype=np.float32))[
+            None, :, None, None], (2, 48, H, W))
+    else:
+        proj = translations(rng, 2, V, 3000.0, 400.0)
+        dv = per_pixel_depths(rng, 2, 32, H, W, 5.3)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+                 for a in (feats, proj, dv))
+
+
+@pytest.mark.parametrize("scene", ["per_pixel", "v5", "odd", "wide"])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_bwd_kernel_scenes_match_plain(cuda, scene, groups):
+    """K2 against its plain version at C = 8, 16, 32, B=2 (V = 3 with its
+    register runs, V = 5 without): f32 within 1e-5 abs + rel, bf16 within 2
+    ulps of the rounded plain result (+ 1e-5)."""
+    for C in (8, 16, 32):
+        feats, proj, dv = _bwd_scene(scene, C, seed=C + groups)
+        D = dv.shape[1]
+        g = torch.Generator(device="cuda").manual_seed(C * groups)
+        go = torch.randn((2, D) + feats.shape[2:4]
+                         + (C if groups == 1 else groups,), generator=g,
+                         device="cuda")
+        ref = plain_cost_volume_bwd(feats, proj, dv, go, groups)
+        before = cost_volume_bwd_cuda.launches
+        got = cost_volume_bwd_cuda(feats, proj, dv, go, groups)
+        assert cost_volume_bwd_cuda.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=BWD_TOL, atol=BWD_TOL,
+                                   msg=f"C={C}")
+        fb, gb = feats.to(torch.bfloat16), go.to(torch.bfloat16)
+        got_b = cost_volume_bwd_cuda(fb, proj, dv, gb, groups)
+        ref_b = plain_cost_volume_bwd(fb.float(), proj, dv, gb.float(),
+                                      groups).to(torch.bfloat16).float()
+        err = (got_b.float() - ref_b).abs()
+        assert bool((err <= 2 * bf16_ulp(ref_b) + BWD_TOL).all()), C
 
 
 def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
