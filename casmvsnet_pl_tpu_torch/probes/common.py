@@ -55,15 +55,16 @@ def default_levels(img_wh=IMG_WH):
             for l, d in ((2, 48), (1, 32), (0, 8))]
 
 
-def plane_levels(device, batch: int = 1, img_wh=IMG_WH) -> dict:
-    """Per level: (proj (B, 2, 3, 4), depth windows (B, D, h, w)), built
-    the way the cascade builds them, on the plane scene, repeated B
-    times."""
+def plane_levels(device, batch: int = 1, img_wh=IMG_WH,
+                 n_views: int = 3) -> dict:
+    """Per level: (proj (B, V-1, 3, 4), depth windows (B, D, h, w)), built
+    the way the cascade builds them, on the plane scene with ``n_views``
+    views, repeated B times."""
     from ..data import PlaneScene
     from ..entry import DEPTH_INTERVAL, DEPTH_MIN
     from ..ops import get_depth_values, initial_depth_values, resize_bilinear
-    scene = PlaneScene(img_wh=img_wh, n_views=3, z0=460.0, baseline=12.0,
-                       focal=600.0, slope_x=0.2)
+    scene = PlaneScene(img_wh=img_wh, n_views=n_views, z0=460.0,
+                       baseline=12.0, focal=600.0, slope_x=0.2)
     _, proj, depths = scene.model_inputs()
     proj = torch.from_numpy(proj).to(device)
     out = {}

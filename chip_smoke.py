@@ -9,7 +9,8 @@ Phases, each of which raises on failure (exit code != 0):
   4. hold the cost-volume kernel (K1) against its plain PyTorch version at
      the three cascade level shapes (B=1), in f32 (<= 1e-4 abs) and bf16
      (<= 1 bf16 ulp of the plain f32 result), for variance and groupwise
-     (G=8);
+     (G=8); and at the eval configuration's levels (1152x864, 5 views,
+     B=1, variance): f32 equal to the bit, bf16 within 1 ulp;
   5. run the inference forward through ``entry``: f32 with the kernel
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
      bf16 main path, counting exactly one K1 launch per level;
@@ -57,7 +58,9 @@ the cost epilogue kernels, TPU kernels #3-#6):
      two bf16 Adam steps (3 #5 + 3 #6 a step);
  18. time the bf16 quad forward (B=1, 4) and train step, then every
      kernel (K1, K2, #3-#6) against its plain version per level, in turns
-     plain/kernel/kernel/plain, each beside its bound;
+     plain/kernel/kernel/plain, each beside its bound; and K1 alone at
+     B=2 (the train step's forward), at G=8 and at the eval configuration
+     (``probes/k1.py``);
  19. profile the bf16 forward (B=1) and train step of the default and the
      quad configurations: device time by kernel name (``torch.profiler``).
 
@@ -696,6 +699,17 @@ def time_kernels(inputs, inputs2, card) -> dict:
             for name, (k_ms, p_ms, nbytes, flops) in sums.items()}
 
 
+def time_k1_shapes(kernel, card, k1) -> dict:
+    """Phase 18: K1 alone at B=2 variance (the train step's forward), B=1
+    G=8 and the eval configuration, per level beside its bound (the module
+    ``k1``, ``probes/k1.py::time_cases``); returns {case: (ms, bound
+    ms)}."""
+    table = k1.time_cases({kernel.name: kernel}, ("step", "g8", "eval"),
+                          DEVICE, card)
+    return {case: (row[kernel.name]["ms"], row[kernel.name]["bound_ms"])
+            for case, row in table.items()}
+
+
 def profile(fn, label: str, card, iters: int = 3) -> None:
     """Device time per call of ``fn`` by kernel name over ``iters`` calls
     (``torch.profiler``, after one warm-up call), the 12 largest and the
@@ -1025,6 +1039,7 @@ def main() -> int:
     from casmvsnet_pl_tpu_torch.ops import plain_cost_volume as plain
     from casmvsnet_pl_tpu_torch.ops import plain_cost_volume_bwd as pbwd
     from casmvsnet_pl_tpu_torch.ops import plain_quad_cost_volume
+    from casmvsnet_pl_tpu_torch.probes import k1
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1033,6 +1048,7 @@ def main() -> int:
     inputs = level_inputs()
     inputs2 = level_inputs(batch=2)
     errs = {"cost_volume_cuda": check_kernel(kernel, plain, inputs)}
+    k1.check({kernel.name: kernel}, DEVICE, cases=("eval",))
     paths = {"inference": check_forward(entry, plain)}
     time_forward(entry, card)
     errs["cost_volume_bwd_cuda"] = check_bwd(kbwd, pbwd, inputs2)
@@ -1061,6 +1077,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_forward(entry, card, label=" sampling=quad", sampling="quad")
     kernel_times = time_kernels(inputs, inputs2, card)
+    k1_shapes = time_k1_shapes(kernel, card, k1)
     profile_paths(entry, train_entry, card)
 
     errs.update(check_tap_reduce(inputs2))
@@ -1139,6 +1156,16 @@ def main() -> int:
             name, csrc + source, "scripts/" + line,
             by_path(name + "_cuda", all_paths), "probes", err,
             (k_ms, p_ms, b_ms, by), timed, lib))
+    # K1, the kernel this slice redesigned: its share of the bound, its
+    # registers at the main path's instantiations (ptxas, this build) and
+    # its times at the other shapes of phase 18
+    k1_line = lines[0]
+    k1_line["pct_of_bound"] = 100 * k1_line["bound_ms"] / k1_line["ms"]
+    k1_line["registers"] = {k: v[0] for k, v in k1.registers(
+        kernel.build_log).items() if k.startswith("bf16") and k.endswith(
+            "G=1")}
+    k1_line["shapes"] = {case: {"ms": ms, "bound_ms": b_ms} for case, (
+        ms, b_ms) in k1_shapes.items()}
     for entry_ in lines:
         if entry_["launches"] < 1:
             raise AssertionError(f"{entry_['name']} never launched on its "

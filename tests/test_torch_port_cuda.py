@@ -233,6 +233,49 @@ def test_bwd_kernel_scenes_match_plain(cuda, scene, groups):
         assert bool((err <= 2 * bf16_ulp(ref_b) + BWD_TOL).all()), C
 
 
+def _k1_matches_plain(feats, proj, dv, groups):
+    """K1 launched once and equal to its plain version to the bit in f32;
+    in bf16 within one bf16 ulp of the plain f32 result."""
+    before = cost_volume_cuda.launches
+    got = cost_volume_cuda(feats, proj, dv, groups)
+    assert cost_volume_cuda.launches == before + 1
+    torch.testing.assert_close(got, plain_cost_volume(feats, proj, dv, groups),
+                               rtol=0, atol=0)
+    fb = feats.to(torch.bfloat16)
+    got_b = cost_volume_cuda(fb, proj, dv, groups)
+    ref_b = plain_cost_volume(fb.float(), proj, dv, groups)
+    assert got_b.dtype == torch.bfloat16
+    assert bool(((got_b.float() - ref_b).abs() <= bf16_ulp(ref_b)).all())
+
+
+@pytest.mark.parametrize("scene", ["per_pixel", "v5", "odd", "wide"])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_kernel_scenes_match_plain(cuda, C, groups, scene):
+    """K1 on K2's scenes (B=2): per-pixel depth windows, five views, no
+    multiple of a block, footprints that jump and leave the image."""
+    _k1_matches_plain(*_bwd_scene(scene, C, seed=C + groups), groups)
+
+
+# (B, H, W, D): no multiple of a warp's pixels, a block's pixels or a depth
+# block; the second wider than a block's pixels and deeper than its depths
+UNEVEN = {"b3_37x53_d5": (3, 37, 53, 5), "b2_67x301_d11": (2, 67, 301, 11)}
+
+
+@pytest.mark.parametrize("shape", sorted(UNEVEN))
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_kernel_uneven_shapes_match_plain(cuda, C, groups, shape):
+    B, H, W, D = UNEVEN[shape]
+    rng = np.random.RandomState(C + groups + B)
+    feats = rng.rand(B, 3, H, W, C).astype(np.float32)
+    proj = translations(rng, B, 3, np.array([900.0, -1400.0]),
+                        np.array([150.0, 60.0]))
+    dv = per_pixel_depths(rng, B, D, H, W, 5.3)
+    _k1_matches_plain(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                        for a in (feats, proj, dv)), groups)
+
+
 def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     feats, proj, dv = _scene(8, 8, **GEOMETRIES["translation"])
     go = torch.zeros(2, 8, 20, 36, 8, device="cuda")
