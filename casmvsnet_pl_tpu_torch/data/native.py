@@ -1,0 +1,52 @@
+"""Build and bind ``image_native.c``, the data readers' host loops.
+
+Compiled with the host C compiler at first use into ``_build/`` inside the
+package (once per source hash) and loaded with ``ctypes``. There is no
+fallback: if the build fails, the caller gets the compiler's error.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_SOURCE = Path(__file__).resolve().parent / "image_native.c"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+
+@functools.cache
+def image_lib() -> ctypes.CDLL:
+    """The compiled ``image_native.c``: ``png_unfilter`` and
+    ``resample_u8``, with their argument types declared."""
+    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
+    so_path = _BUILD_DIR / f"image_native_{digest}.so"
+    if not so_path.exists():
+        cc = shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            raise RuntimeError("no C compiler (cc, gcc) on PATH: the image "
+                               f"loops are built from {_SOURCE}")
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cc, "-O3", "-shared", "-fPIC", str(_SOURCE), "-o", str(tmp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {_SOURCE.name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(str(so_path))
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    n = ctypes.c_int64
+    lib.png_unfilter.argtypes = [u8, u8, n, n, n]
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.resample_u8.argtypes = [u8, u8, n, n, n, n, i64, i64, i32, n]
+    lib.resample_u8.restype = None
+    return lib

@@ -1,20 +1,25 @@
 """Synthetic plane scene with exact ground truth, numpy and torch only.
 
-Counterpart of ``casmvsnet_pl_tpu/data/synthetic.py::PlaneScene`` (the
-parts that build model inputs). A textured plane z = z0 + slope_x * X is
-seen by V cameras translated along x with identity rotation. The texture's
-cubic upsample uses ``F.interpolate(mode="bicubic")`` in place of OpenCV, so
-the images are alike but not bit-equal to the JAX package's.
+Counterpart of ``casmvsnet_pl_tpu/data/synthetic.py``. A textured plane
+z = z0 + slope_x * X is seen by V cameras translated along x with identity
+rotation. The texture's cubic upsample uses ``F.interpolate(mode=
+"bicubic")`` in place of OpenCV, so the images are alike but not bit-equal
+to the JAX package's; the geometry (depths, cameras, surface points) is
+the same. ``write_dtu_tree`` materializes the scene in DTU's on-disk format
+(pair.txt, cam.txt, PFM depths, mask PNGs, rectified PNGs).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-# ImageNet statistics, as in casmvsnet_pl_tpu/data/base.py
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+from .base import IMAGENET_MEAN, IMAGENET_STD, resize_nearest
+from .cams import relative_proj_mats
+from .pfm import save_pfm
+from .png import write_png
 
 
 def _smooth_texture(rng: np.random.RandomState, size: int = 64,
@@ -36,16 +41,6 @@ def _sample_texture(tex: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray
     fu, fv = (u - u0)[..., None], (v - v0)[..., None]
     return (tex[v0, u0] * (1 - fu) * (1 - fv) + tex[v0, u0 + 1] * fu * (1 - fv)
             + tex[v0 + 1, u0] * (1 - fu) * fv + tex[v0 + 1, u0 + 1] * fu * fv)
-
-
-def relative_proj_mats(ref_proj: np.ndarray, src_projs: np.ndarray) -> np.ndarray:
-    """src @ inv(ref) per level, top 3 rows.
-
-    ref_proj: (L, 4, 4); src_projs: (V-1, L, 4, 4) -> (V-1, L, 3, 4).
-    """
-    ref_inv = np.linalg.inv(ref_proj.astype(np.float64))
-    rel = np.einsum("vlij,ljk->vlik", src_projs.astype(np.float64), ref_inv)
-    return rel[:, :, :3].astype(np.float32)
 
 
 class PlaneScene:
@@ -95,6 +90,24 @@ class PlaneScene:
         tv = (Yw / self.z0 + 0.5) * (th - 1)
         return _sample_texture(self.texture, tu, tv).astype(np.float32)
 
+    def surface_points(self, step: int = 1) -> np.ndarray:
+        """Exact surface points (world frame, scene units), float64 (N, 3):
+        every ``step``-th pixel of every view's closed-form depth map
+        backprojected. Their union is the observed surface, the ground
+        truth against which clouds fused from this scene are scored
+        (``evaluation/dtu_eval.py``)."""
+        W, H = self.img_wh
+        cx, cy, f = self.K[0, 2], self.K[1, 2], self.focal
+        u, v = np.meshgrid(np.arange(0, W, step, dtype=np.float32),
+                           np.arange(0, H, step, dtype=np.float32))
+        pts = []
+        for view in range(self.n_views):
+            z = self.depth_map(view)[::step, ::step]
+            X = (u - cx) / f * z + view * self.baseline
+            Y = (v - cy) / f * z
+            pts.append(np.stack([X, Y, z], axis=-1).reshape(-1, 3))
+        return np.concatenate(pts).astype(np.float64)
+
     def proj_mats_level(self, level_scale: float = 1.0) -> np.ndarray:
         """Absolute 4x4 projections K_s @ E per view at a resolution scale."""
         K = self.K.copy()
@@ -119,3 +132,76 @@ class PlaneScene:
         depths = {f"level_{l}": depth[None, ::2 ** l, ::2 ** l]
                   for l in range(levels)}
         return imgs[None].astype(np.float32), rel[None], depths
+
+
+def write_dtu_tree(root: str, scans=("scan1", "scan2"), n_cams: int = 5,
+                   img_wh=(64, 64), native_wh=(256, 256), seed: int = 0,
+                   z0: float = 460.0, slope_x: float = 0.3,
+                   focal: float = 100.0, lights=range(7)) -> None:
+    """Write a DTU-format tree of a :class:`PlaneScene` for data-reader
+    tests, as ``casmvsnet_pl_tpu/data/synthetic.py::write_dtu_tree`` does:
+    rectified PNGs at ``img_wh`` for each light in ``lights``, in both the
+    ``<scan>_train`` and the ``<scan>`` folder; native-resolution PFM depths
+    and mask PNGs; per-view cam.txt at train (1/4 of img_wh) and test (1/4
+    native) scales; a shared pair.txt. ``focal`` (pixels at ``img_wh``)
+    keeps the field of view of the 64x64 default at larger sizes when it
+    grows with the width.
+    """
+    rng = np.random.RandomState(seed)
+    W, H = img_wh
+    os.makedirs(os.path.join(root, "Cameras/train"), exist_ok=True)
+
+    # pair.txt: every view lists all the others, best-first
+    with open(os.path.join(root, "Cameras/pair.txt"), "w") as f:
+        f.write(f"{n_cams}\n")
+        for ref in range(n_cams):
+            srcs = [v for v in range(n_cams) if v != ref]
+            f.write(f"{ref}\n{len(srcs)} " +
+                    " ".join(f"{v} {100 - i}" for i, v in enumerate(srcs)) +
+                    "\n")
+
+    def write_cam(path, K, E, depth_min):
+        with open(path, "w") as f:
+            f.write("extrinsic\n")
+            for row in E:
+                f.write(" ".join(f"{x:.6f}" for x in row) + "\n")
+            f.write("\nintrinsic\n")
+            for row in K:
+                f.write(" ".join(f"{x:.6f}" for x in row) + "\n")
+            f.write(f"\n{depth_min} 2.5\n")
+
+    scene = PlaneScene(img_wh=img_wh, n_views=n_cams, seed=seed, z0=z0,
+                       slope_x=slope_x, focal=focal)
+    for vid in range(n_cams):
+        E = scene.extrinsics[vid]
+        K_train = scene.K.copy()
+        K_train[:2] /= 4                       # train cams: 1/4 of img_wh
+        write_cam(os.path.join(root, f"Cameras/train/{vid:08d}_cam.txt"),
+                  K_train, E, 425.0)
+        K_test = scene.K.copy()                # test cams: native resolution
+        K_test[0] *= native_wh[0] / W
+        K_test[1] *= native_wh[1] / H
+        write_cam(os.path.join(root, f"Cameras/{vid:08d}_cam.txt"),
+                  K_test, E, 425.0)
+
+    for scan in scans:
+        for sub in (f"Rectified/{scan}_train", f"Rectified/{scan}",
+                    f"Depths/{scan}"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for vid in range(n_cams):
+            img = (scene.render(vid) * 255).astype(np.uint8)
+            for light in lights:
+                shade = np.clip(img.astype(np.int32) + (light - 3) * 5,
+                                0, 255).astype(np.uint8)
+                for sub in (f"{scan}_train", scan):
+                    write_png(os.path.join(
+                        root, f"Rectified/{sub}/"
+                        f"rect_{vid + 1:03d}_{light}_r5000.png"), shade)
+            # native-resolution depth and visibility mask
+            save_pfm(os.path.join(root,
+                                  f"Depths/{scan}/depth_map_{vid:04d}.pfm"),
+                     resize_nearest(scene.depth_map(vid), native_wh))
+            mask = (rng.rand(native_wh[1], native_wh[0]) > 0.1
+                    ).astype(np.uint8) * 255
+            write_png(os.path.join(
+                root, f"Depths/{scan}/depth_visual_{vid:04d}.png"), mask)

@@ -15,7 +15,7 @@ Phases, each of which raises on failure (exit code != 0):
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
      bf16 main path, counting exactly one K1 launch per level;
   6. time bf16 forwards at B=1 and B=4 with CUDA events;
-  7. (below, after phase 26) print the kernels' JSON line (launches per
+  7. (below, after phase 32) print the kernels' JSON line (launches per
      main path; what each time covers; bounds), then {"ok": true,
      "device": ...} last;
   8. hold the backward kernel (K2) against its plain PyTorch version at the
@@ -108,6 +108,27 @@ counted over phases 23-26:
      at small shapes, beside ``index_select`` at the gathers' probe shapes
      and the allocations K1 and K2 make (``new_empty``, ``new_zeros``).
 
+The eval path (``eval_torch.py``: inference to PFM maps and their fusion,
+``eval.py``'s two steps), in a temporary directory:
+ 28. print which of PIL, cv2, imageio, tqdm and tensorboardX import;
+ 29. write a synthetic DTU tree at DTU's test size (1 scan, 5 cameras,
+     PNGs at 1600x1200) with the port's writer; print the host's decode
+     and decode + PIL-bilinear resize (to 1152x864) ms per image;
+ 30. ``eval_torch.run_inference`` in bf16 over the 5 reference views at
+     1152x864x5 (the DTU reader at ``img_wh`` 1152x864): exactly 15 K1
+     launches and no other kernel; PFMs of (864, 1152) and (216, 288),
+     depths finite and inside the swept range; ms per view (CUDA events,
+     the forward alone and with the host's reading and writing, median of
+     views 2-5) and peak memory;
+ 31. one f32 view, the model with K1 against the plain cost volume
+     (< 0.05 mm on depth_0); a profile of one bf16 view's forward; one
+     bf16 view with --num_groups 8 (3 K1 launches); one bf16 forward at
+     1600x1184x5 for its peak memory;
+ 32. ``eval_torch.run_fusion`` on the card of the tree's ground-truth
+     depths with proba 1, scored by the port's ``evaluate_scan`` in a
+     40 mm box at the rig's centre (mean accuracy and overall < 0.1 mm),
+     then of phase 30's PFMs (the point count); ms per reference view.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -118,11 +139,15 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from casmvsnet_pl_tpu_torch.probes.common import (bf16_ulp, bound, cuda_ms,
@@ -1016,6 +1041,317 @@ def host_costs(card) -> None:
         f"{n} {us!r} us" for n, us in times.items()) + f" [{card}]")
 
 
+# --- the eval path: eval_torch.py's inference to PFM maps and fusion --------
+
+EVAL_WH = (1152, 864)          # eval.py's resolution, behind published clouds
+EVAL_VIEWS = 5
+EVAL_NATIVE_WH = (1600, 1200)  # DTU's test images
+EVAL_MEMORY_WH = (1600, 1184)  # the reference's published memory figure
+# the synthetic tree's focal length at 1600 px: the 64x64 tree's field of
+# view (100 px there), so the plane keeps its depth range
+EVAL_FOCAL = 2500.0
+EVAL_SCAN = "scan1"
+# the fused ground-truth cloud is scored in a box of this half-width (mm)
+# at the rig's centre: the Python scorer's thinning loop would take minutes
+# on the whole cloud (~4.8 M points)
+GT_BOX_MM = 20.0
+GT_TOL_MM = 0.1
+EVAL_FWD = scaled(DEFAULT_FWD, EVAL_VIEWS)
+
+
+def image_libraries() -> None:
+    """Phase 28: which image libraries import on this machine (the JPEG
+    readers of BlendedMVS and Tanks and Temples wait on the answer)."""
+    code = ("import importlib\n"
+            "for name in ('PIL', 'cv2', 'imageio', 'tqdm', 'tensorboardX'):\n"
+            "    try:\n"
+            "        m = importlib.import_module(name)\n"
+            "        print(name, getattr(m, '__version__', '?'), end='; ')\n"
+            "    except Exception as e:\n"
+            "        print(name, 'not importable', type(e).__name__,"
+            " end='; ')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, check=True)
+    print("image libraries:", proc.stdout.strip())
+
+
+def eval_tree(work: str):
+    """Phase 29: a synthetic DTU tree at DTU's test size (1 scan, 5
+    cameras, rectified PNGs at 1600x1200, light 3 only) written with the
+    port's PNG encoder; the decode and decode + PIL-bilinear resize times
+    of its images. Returns (tree root, the reader's class)."""
+    from casmvsnet_pl_tpu_torch.data import DTUDataset, write_dtu_tree
+    from casmvsnet_pl_tpu_torch.data.base import load_image
+    from casmvsnet_pl_tpu_torch.data.png import read_png
+
+    tree, lists = os.path.join(work, "tree"), os.path.join(work, "lists")
+    t0 = time.perf_counter()
+    write_dtu_tree(tree, scans=(EVAL_SCAN,), n_cams=EVAL_VIEWS,
+                   img_wh=EVAL_NATIVE_WH, native_wh=EVAL_NATIVE_WH,
+                   focal=EVAL_FOCAL, lights=(3,))
+    written = time.perf_counter() - t0
+    os.makedirs(lists)
+    with open(os.path.join(lists, "test.txt"), "w") as f:
+        f.write(EVAL_SCAN + "\n")
+
+    class ChipDTU(DTUDataset):
+        NATIVE_WH = EVAL_NATIVE_WH
+        N_CAMS = EVAL_VIEWS
+        LISTS_DIR = lists
+
+    pngs = [os.path.join(tree, f"Rectified/{EVAL_SCAN}/"
+                               f"rect_{v + 1:03d}_3_r5000.png")
+            for v in range(EVAL_VIEWS)]
+    read_png(pngs[0])                     # builds the C helper
+    decode, resize = [], []
+    for path in pngs:
+        t0 = time.perf_counter()
+        read_png(path)
+        t1 = time.perf_counter()
+        load_image(path, EVAL_WH)
+        decode.append((t1 - t0) * 1e3)
+        resize.append((time.perf_counter() - t1) * 1e3)
+    print(f"eval tree: 1 scan, {EVAL_VIEWS} cameras, PNGs at "
+          f"{EVAL_NATIVE_WH[0]}x{EVAL_NATIVE_WH[1]}, written in {written!r} "
+          f"s; host ms per image, median of {EVAL_VIEWS}: decode "
+          f"{statistics.median(decode)!r}, decode + PIL-bilinear resize to "
+          f"{EVAL_WH[0]}x{EVAL_WH[1]} {statistics.median(resize)!r}")
+    return tree, ChipDTU
+
+
+def eval_args(tree: str, *flags):
+    import eval_torch
+    return eval_torch.get_opts(["--root_dir", tree, "--n_views",
+                                str(EVAL_VIEWS), "--img_wh",
+                                str(EVAL_WH[0]), str(EVAL_WH[1]), *flags])
+
+
+def sweep_range(args, depth_min: float, depth_interval: float):
+    """The lowest and highest depth any level's hypotheses can reach."""
+    nd, ratios = args.n_depths, args.interval_ratios
+    lo = depth_min - sum(nd[l] / 2 * depth_interval * ratios[l]
+                         for l in (0, 1))
+    hi = depth_min + (nd[2] - 1) * depth_interval * ratios[2] + sum(
+        (nd[l] / 2 - 1) * depth_interval * ratios[l] for l in (0, 1))
+    return lo, hi
+
+
+def eval_inference(tree: str, dataset_cls, card):
+    """Phase 30, the eval path: ``eval_torch.run_inference`` in bf16 for
+    every reference view at 1152x864x5, exactly 3 K1 launches a view; the
+    PFMs' shapes, finite depths inside the swept range. Returns (launches,
+    predictor, dataset, args)."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import read_pfm
+
+    args = eval_args(tree)
+    ds = dataset_cls(tree, "test", n_views=EVAL_VIEWS, img_wh=EVAL_WH)
+    predict = eval_torch.build_predictor(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    records = eval_torch.run_inference(args, ds, ds.scans, predict)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts(counts, EVAL_FWD, "eval inference")
+    lo, hi = sweep_range(args, float(ds[0]["init_depth_min"]),
+                         args.depth_interval)
+    W, H = EVAL_WH
+    for vid in range(EVAL_VIEWS):
+        depth = read_pfm(f"results/dtu/depth/{EVAL_SCAN}/"
+                         f"depth_{vid:04d}.pfm")[0]
+        proba = read_pfm(f"results/dtu/depth/{EVAL_SCAN}/"
+                         f"proba_{vid:04d}.pfm")[0]
+        if depth.shape != (H, W) or proba.shape != (H // 4, W // 4):
+            raise AssertionError(f"view {vid}: PFM shapes {depth.shape}, "
+                                 f"{proba.shape}")
+        if not (np.isfinite(depth).all() and lo <= depth.min()
+                and depth.max() <= hi):
+            raise AssertionError(f"view {vid}: depth outside [{lo}, {hi}]")
+    fwd = [r["forward_ms"] for r in records]
+    view = [r["view_ms"] for r in records]
+    print(f"eval inference bf16 {W}x{H}x{EVAL_VIEWS}, {len(records)} views "
+          f"through eval_torch.run_inference: forward "
+          f"{statistics.median(fwd[1:])!r} ms per view (CUDA events, median of views 2-{len(records)}; "
+          f"first {fwd[0]!r}), with reading, transfer and PFM writing "
+          f"{statistics.median(view[1:])!r} ms (first {view[0]!r}); peak "
+          f"memory {peak!r} GiB; {wall!r} s wall; depths in [{lo}, {hi}]; "
+          f"launches {counts} [{card}]")
+    return counts, predict, ds, args
+
+
+def eval_checks(tree: str, dataset_cls, ds, predict, card) -> dict:
+    """Phase 31: one view in f32, the model with K1 against the plain cost
+    volume (< 0.05 mm on depth_0, softmax sharpened as in phase 5); a
+    profile of the bf16 forward of one view; one bf16 view with
+    --num_groups 8 (3 K1 launches); one bf16 forward at 1600x1184x5 for
+    its peak memory. Returns the G=8 view's launches."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.ops import plain_cost_volume
+
+    def inputs(sample):
+        return (torch.from_numpy(sample["imgs"][None]).to(DEVICE),
+                torch.from_numpy(sample["proj_mats"][None]).to(DEVICE),
+                float(sample["init_depth_min"]),
+                float(sample["depth_interval"]))
+
+    args = inputs(ds[0])
+    p32 = eval_torch.build_predictor(eval_args(tree, "--precision", "f32"))
+    with torch.no_grad():
+        for l in range(3):
+            getattr(p32.model, f"cost_reg_{l}").prob.weight *= 30.0
+    d_k, _ = counted(lambda: p32(*args), DEFAULT_FWD, "eval f32 view")
+    d_p, _ = counted(lambda: p32(*args, cost_volume=plain_cost_volume), {},
+                     "eval f32 plain view")
+    dd = (d_k - d_p).abs().max().item()
+    print(f"eval f32 view {EVAL_WH[0]}x{EVAL_WH[1]}x{EVAL_VIEWS}, kernel vs "
+          f"plain cost volume: max|d depth_0|={dd!r} mm (bound "
+          f"{DEPTH_TOL_MM}), depth_0 range [{d_k.min().item()!r}, "
+          f"{d_k.max().item()!r}]")
+    if not dd < DEPTH_TOL_MM:
+        raise AssertionError(f"eval f32 depth_0 kernel vs plain {dd} mm")
+    del p32, d_k, d_p
+    torch.cuda.empty_cache()
+    profile(lambda: predict(*args), f" eval forward bf16 {EVAL_WH[0]}x"
+            f"{EVAL_WH[1]}x{EVAL_VIEWS}", card)
+
+    g8 = eval_torch.build_predictor(eval_args(tree, "--num_groups", "8"))
+    reset_counts()
+    depth, conf = g8(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, DEFAULT_FWD, "eval bf16 view --num_groups 8")
+    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
+        raise AssertionError("eval --num_groups 8: non-finite outputs")
+    print(f"eval bf16 view --num_groups 8: launches {counts}, depth_0 "
+          f"{tuple(depth.shape)}")
+    del g8, depth, conf
+    torch.cuda.empty_cache()
+
+    big = inputs(dataset_cls(tree, "test", n_views=EVAL_VIEWS,
+                             img_wh=EVAL_MEMORY_WH)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    depth, _ = predict(*big)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"eval bf16 forward {EVAL_MEMORY_WH[0]}x{EVAL_MEMORY_WH[1]}x"
+          f"{EVAL_VIEWS}: peak memory {peak!r} GiB ({base / 2 ** 30!r} GiB "
+          f"of it weights and inputs held before the call); depth_0 "
+          f"{tuple(depth.shape)} [{card}]")
+    return counts
+
+
+def eval_fusion(tree: str, ds, work: str, card) -> None:
+    """Phase 32: ``eval_torch.run_fusion`` on the card of the tree's own
+    ground-truth depths (nearest-resized to 1152x864, as the reader does)
+    with proba 1, scored by the port's ``evaluate_scan`` against the plane's
+    exact surface points in a 40 mm box at the rig's centre (mean accuracy
+    and overall < 0.1 mm); then of phase 30's PFMs (random weights: the
+    point count only, at --conf 0.05). ms per reference view, with and
+    without the PNG and PFM reading."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import PlaneScene, save_pfm
+    from casmvsnet_pl_tpu_torch.evaluation import evaluate_scan
+    from casmvsnet_pl_tpu_torch.fusion import fuse_scan, read_ply
+
+    args = eval_args(tree, "--conf", "0.5", "--min_geo_consistent", "2")
+    W, H = EVAL_WH
+    gt_dir = os.path.join(work, "gt")
+    depth_dir = os.path.join(gt_dir, f"results/dtu/depth/{EVAL_SCAN}")
+    os.makedirs(depth_dir)
+    depths = {vid: ds.read_depth(EVAL_SCAN, vid)["level_0"]
+              for vid in range(EVAL_VIEWS)}
+    for vid, depth in depths.items():
+        save_pfm(os.path.join(depth_dir, f"depth_{vid:04d}.pfm"), depth)
+        save_pfm(os.path.join(depth_dir, f"proba_{vid:04d}.pfm"),
+                 np.ones((H // 4, W // 4), np.float32))
+    os.chdir(gt_dir)
+    t0 = time.perf_counter()
+    eval_torch.run_fusion(args, ds, [EVAL_SCAN])
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    xyz, _ = read_ply(f"results/dtu/points/{EVAL_SCAN}.ply")
+    scene = PlaneScene(img_wh=EVAL_NATIVE_WH, n_views=EVAL_VIEWS, z0=460.0,
+                       slope_x=0.3, focal=EVAL_FOCAL)
+    stl = scene.surface_points()
+    centre = scene.baseline * (EVAL_VIEWS - 1) / 2
+
+    def box(p):
+        return p[(np.abs(p[:, 0] - centre) < GT_BOX_MM)
+                 & (np.abs(p[:, 1]) < GT_BOX_MM)]
+
+    t0 = time.perf_counter()
+    res = evaluate_scan(box(xyz), box(stl), max_dist=20.0)
+    score_s = time.perf_counter() - t0
+    print(f"eval fusion of ground-truth depths: {len(xyz)} points; in the "
+          f"{2 * GT_BOX_MM} mm box: mean acc {res.mean_acc!r}, mean comp "
+          f"{res.mean_comp!r}, median acc {res.median_acc!r}, median comp "
+          f"{res.median_comp!r}, overall {res.overall!r} mm (bound "
+          f"{GT_TOL_MM} on mean acc and overall; {res.n_data} data, "
+          f"{res.n_stl} surface points; scored in {score_s!r} s)")
+    if not (res.mean_acc < GT_TOL_MM and res.overall < GT_TOL_MM):
+        raise AssertionError(f"fused ground-truth cloud scores {res}")
+
+    images = {vid: eval_torch.read_image(os.path.join(
+        tree, f"Rectified/{EVAL_SCAN}/rect_{vid + 1:03d}_3_r5000.png"),
+        EVAL_WH) for vid in range(EVAL_VIEWS)}
+    metas = [(m[2], m[3]) for m in ds.metas]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem_xyz, _ = fuse_scan(metas, images.__getitem__, depths.__getitem__,
+                           lambda vid: np.ones((H // 4, W // 4), np.float32),
+                           lambda vid: ds.proj_mats[vid][0][0], EVAL_WH,
+                           conf=0.5, min_geo_consistent=2, device=DEVICE)
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    if len(mem_xyz) != len(xyz):
+        raise AssertionError("fusion from memory and from files differ")
+
+    # random weights spread the confidence over the sweep (~4/48 in the
+    # 4 bins): a threshold below it lets the predictions reach the cloud
+    os.chdir(work)
+    args = eval_args(tree, "--conf", "0.05", "--min_geo_consistent", "2")
+    t0 = time.perf_counter()
+    eval_torch.run_fusion(args, ds, [EVAL_SCAN])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    n_pred = len(read_ply(f"results/dtu/points/{EVAL_SCAN}.ply")[0])
+    n = len(metas)
+    print(f"eval fusion on the card, {W}x{H}, {n} reference views x "
+          f"{n - 1} sources: run_fusion {1e3 * gt_s / n!r} ms per reference "
+          f"view (ground truth; PNG and PFM reading included), fuse_scan "
+          f"from memory {1e3 * mem_s / n!r} ms; of the random-weight "
+          f"predictions (--conf 0.05 --min_geo_consistent 2): {n_pred} "
+          f"points, "
+          f"{1e3 * pred_s / n!r} ms per reference view [{card}]")
+
+
+def eval_path(card) -> dict:
+    """Phases 28-32 in a temporary directory; returns the launches of the
+    eval path (phase 30) and of its --num_groups 8 view (phase 31)."""
+    image_libraries()
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work:
+        try:
+            tree, dataset_cls = eval_tree(work)
+            os.chdir(work)
+            counts, predict, ds, _ = eval_inference(tree, dataset_cls, card)
+            g8 = eval_checks(tree, dataset_cls, ds, predict, card)
+            del predict
+            torch.cuda.empty_cache()
+            eval_fusion(tree, ds, work, card)
+        finally:
+            os.chdir(cwd)
+    print(f"eval path (phases 28-32): {time.perf_counter() - t0!r} s wall")
+    return {"eval": counts, "eval_g8": g8}
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -1092,6 +1428,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_results, paths["probes"] = probes_path(card)
     host_costs(card)
+    paths.update(eval_path(card))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -1103,7 +1440,8 @@ def main() -> int:
     def by_path(name, keys):
         return {p: paths[p].get(name, 0) for p in keys}
 
-    default_paths = ("inference", "train", "quad_inference", "quad_train")
+    default_paths = ("inference", "train", "quad_inference", "quad_train",
+                     "eval", "eval_g8")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

@@ -1,7 +1,8 @@
-"""Cheap guards on the port: no JAX inside it, no CPU fallback on the card
-path, and its main paths (inference and a train step, default and quad
-configurations, the packed-quad warp, and the probes' plain versions) run
-end to end on the CPU at a small size without launching a kernel."""
+"""Cheap guards on the port: no JAX, PIL or OpenCV inside it or in
+``eval_torch.py``, no CPU fallback on the card path, and its main paths
+(inference and a train step, default and quad configurations, the
+packed-quad warp, and the probes' plain versions) run end to end on the
+CPU at a small size without launching a kernel."""
 import ast
 import math
 import os
@@ -270,3 +271,50 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
     assert torch.equal(epi5.patch_epilogue_t(rowsT, fx, fx),
                        epi5.plain_patch_epilogue_t(rowsT, fx, fx))
     assert _all_launches() == before
+
+
+def test_eval_torch_imports_no_jax_pil_or_cv2():
+    code = (
+        "import sys, eval_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'casmvsnet_pl_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_eval_torch_fails_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "eval_torch.py"),
+                           "--root_dir", str(tmp_path)], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not os.path.exists(tmp_path / "results")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--dataset_name", "tanks"], "item 16"),
+    (["--dataset_name", "blendedmvs"], "item 16"),
+    (["--save_visual"], "item 13")])
+def test_eval_torch_refuses_what_is_not_ported(flags, item):
+    import eval_torch
+
+    with pytest.raises(NotImplementedError, match=item):
+        eval_torch.get_opts(flags)
+
+
+def test_fusion_defaults_to_the_card():
+    import inspect
+
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.fusion import fuse_scan
+
+    assert inspect.signature(fuse_scan).parameters["device"].default == \
+        "cuda"
+    args = eval_torch.get_opts([])
+    assert not args.cpu
+    assert eval_torch.resolve_device(eval_torch.get_opts(["--cpu"])).type \
+        == "cpu"
