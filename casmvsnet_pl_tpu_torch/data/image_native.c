@@ -1,7 +1,7 @@
-// Host-side image loops of the data readers, which numpy cannot vectorise
-// well: the PNG row unfilter (data/png.py) and PIL's 8-bit separable
-// resample pass (data/base.py). Built with the host C compiler at first use
-// and bound with ctypes (data/native.py).
+// Host-side loops that numpy cannot vectorise well: the PNG row unfilter
+// (data/png.py), PIL's 8-bit separable resample pass (data/base.py) and the
+// CRC-32C of TensorBoard's record framing (utils/tensorboard.py). Built with
+// the host C compiler at first use and bound with ctypes (data/native.py).
 
 #include <stdint.h>
 #include <string.h>
@@ -81,4 +81,20 @@ void resample_u8(const uint8_t* in, uint8_t* out, int64_t outer,
       }
     }
   }
+}
+
+// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of n bytes, one
+// table lookup a byte; the table is built per call (2 K steps), so calls
+// from several threads share nothing.
+uint32_t crc32c(const uint8_t* data, int64_t n) {
+  uint32_t table[256];
+  for (uint32_t i = 0; i < 256; ++i) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+    table[i] = c;
+  }
+  uint32_t crc = 0xFFFFFFFFu;
+  for (int64_t i = 0; i < n; ++i)
+    crc = table[(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
+  return crc ^ 0xFFFFFFFFu;
 }

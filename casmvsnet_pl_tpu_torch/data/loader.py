@@ -1,8 +1,9 @@
 """Host-side batching, shuffling and device transfer, numpy and torch only.
 
 Counterpart of ``casmvsnet_pl_tpu/data/loader.py``: a thread pool loads
-samples, batches are collated into fixed-shape numpy dicts, a ragged last
-batch can be padded with mask-zeroed repeats, and :func:`prefetch_to_device`
+samples, batches are collated into fixed-shape numpy dicts (each rank's
+rows of the global batch when several ranks train), a ragged last batch
+can be padded with mask-zeroed repeats, and :func:`prefetch_to_device`
 moves batches to the device ahead of use (pinned host memory and
 ``non_blocking`` copies on a CUDA device, the counterpart of the JAX
 package's ``prefetch_to_device``).
@@ -15,6 +16,8 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from ..parallel import shard_rows
 
 
 def collate(samples: list[dict]) -> dict:
@@ -33,11 +36,21 @@ def collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    """Minimal epoch-based loader over a sequence-style dataset."""
+    """Minimal epoch-based loader over a sequence-style dataset.
+
+    ``batch_size`` is the global batch. With ``world`` ranks each rank
+    loads and yields only its rows ``[rank*b/N, (rank+1)*b/N)`` of every
+    global batch (``parallel/dist.py::shard_rows``); every rank shuffles
+    the same order from ``seed``, so the ranks' rows together are the
+    global batches that one process yields (and that the JAX package's
+    loader yields with the same seed). A ragged last global batch is
+    dropped or, with ``pad_last``, padded before it is sliced.
+    """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool | None = None,
-                 pad_last: bool = False, seed: int = 0):
+                 pad_last: bool = False, seed: int = 0, rank: int = 0,
+                 world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -45,9 +58,21 @@ class DataLoader:
         # shuffled epochs drop the ragged last batch unless told otherwise
         self.drop_last = drop_last if drop_last is not None else shuffle
         # pad_last: cover every sample with fixed shapes; the padded rows
-        # repeat real samples with zeroed masks (see pad_batch)
+        # repeat the last real sample with zeroed masks
         self.pad_last = pad_last and not self.drop_last
+        if world > 1 and not (self.drop_last or self.pad_last):
+            raise ValueError("a ragged last batch cannot be split between "
+                             "ranks: drop it or pad it")
+        self.rows = shard_rows(batch_size, rank, world)
         self._rng = np.random.RandomState(seed)
+
+    def skip_epochs(self, n: int) -> None:
+        """Advance the shuffle as ``n`` epochs would (a resumed run then
+        sees the batches an uninterrupted one would)."""
+        if self.shuffle:
+            order = np.arange(len(self.dataset))
+            for _ in range(n):
+                self._rng.shuffle(order)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -65,7 +90,15 @@ class DataLoader:
 
             def submit(bi):
                 idxs = order[bi * self.batch_size:(bi + 1) * self.batch_size]
-                pending.append(pool.map(self.dataset.__getitem__, idxs))
+                n_real = len(idxs)
+                rows = range(self.rows.start, self.rows.stop)
+                if not self.pad_last:
+                    rows = rows[:max(0, n_real - self.rows.start)]
+                # a padded row repeats the global batch's last real sample
+                local = [idxs[min(j, n_real - 1)] for j in rows]
+                padded = [i for i, j in enumerate(rows) if j >= n_real]
+                pending.append((pool.map(self.dataset.__getitem__, local),
+                                padded))
 
             ahead = min(2, nb)
             for bi in range(ahead):
@@ -73,44 +106,19 @@ class DataLoader:
             for bi in range(nb):
                 if bi + ahead < nb:
                     submit(bi + ahead)
-                batch = collate(list(pending.popleft()))
-                n_real = min(self.batch_size,
-                             len(self.dataset) - bi * self.batch_size)
-                if self.pad_last and n_real < self.batch_size:
-                    batch = pad_batch(batch, self.batch_size, n_real)
+                samples, padded = pending.popleft()
+                batch = collate(list(samples))
+                for v in batch.get("masks", {}).values():
+                    v[padded] = 0
                 yield batch
 
 
-def pad_batch(batch: dict, batch_size: int, n_real: int) -> dict:
-    """Pad a ragged batch to ``batch_size`` rows with mask-zeroed repeats:
-    every array repeats its last real row, and the ``masks`` pyramid is
-    zeroed on the padded rows, so they add nothing to the mask-gated loss
-    and pixel-weighted metric sums."""
-    pad = batch_size - n_real
-
-    def pad_arr(x):
-        if isinstance(x, list):
-            return x + [x[-1]] * pad
-        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)], axis=0)
-
-    out = {}
-    for key, val in batch.items():
-        if isinstance(val, dict):
-            out[key] = {k: pad_arr(v) for k, v in val.items()}
-        else:
-            out[key] = pad_arr(val)
-    if "masks" in out:
-        for k, v in out["masks"].items():
-            v = v.copy()
-            v[n_real:] = 0
-            out["masks"][k] = v
-    return out
-
-
-def to_device(batch: dict, device) -> dict:
-    """numpy batch -> tensors on ``device`` (``scan_vid`` stays a list).
-    On a CUDA device the host arrays are pinned and copied with
-    ``non_blocking=True``, so the copy overlaps work already queued."""
+def to_device(batch: dict, device,
+              float_dtype: torch.dtype = torch.float32) -> dict:
+    """numpy batch -> tensors on ``device`` (``scan_vid`` stays a list),
+    float32 arrays as ``float_dtype``. On a CUDA device the host arrays are
+    pinned and copied with ``non_blocking=True``, so the copy overlaps work
+    already queued."""
     device = torch.device(device)
     cuda = device.type == "cuda"
 
@@ -118,7 +126,8 @@ def to_device(batch: dict, device) -> dict:
         t = torch.from_numpy(np.ascontiguousarray(x))
         if cuda:
             t = t.pin_memory()
-        return t.to(device, non_blocking=cuda)
+        t = t.to(device, non_blocking=cuda)
+        return t.to(float_dtype) if t.dtype == torch.float32 else t
 
     out = {}
     for key, val in batch.items():
@@ -131,13 +140,14 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
-def prefetch_to_device(iterator: Iterator[dict], device,
-                       size: int = 2) -> Iterator[dict]:
-    """Yield the batches of ``iterator`` on ``device``, with up to ``size``
-    transfers issued ahead of the batch being used."""
+def prefetch_to_device(iterator: Iterator[dict], device, size: int = 2,
+                       float_dtype: torch.dtype = torch.float32
+                       ) -> Iterator[dict]:
+    """Yield the batches of ``iterator`` on ``device`` (:func:`to_device`),
+    with up to ``size`` transfers issued ahead of the batch being used."""
     queue: collections.deque = collections.deque()
     for batch in iterator:
-        queue.append(to_device(batch, device))
+        queue.append(to_device(batch, device, float_dtype))
         if len(queue) >= size:
             yield queue.popleft()
     while queue:

@@ -1,4 +1,5 @@
-"""Build and bind ``image_native.c``, the data readers' host loops.
+"""Build and bind ``image_native.c``, the data readers' host loops (and the
+CRC-32C of the TensorBoard event writer).
 
 Compiled with the host C compiler at first use into ``_build/`` inside the
 package (once per source hash) and loaded with ``ctypes``. There is no
@@ -22,8 +23,8 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 @functools.cache
 def image_lib() -> ctypes.CDLL:
-    """The compiled ``image_native.c``: ``png_unfilter`` and
-    ``resample_u8``, with their argument types declared."""
+    """The compiled ``image_native.c``: ``png_unfilter``, ``resample_u8``
+    and ``crc32c``, with their argument types declared."""
     digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
     so_path = _BUILD_DIR / f"image_native_{digest}.so"
     if not so_path.exists():
@@ -49,4 +50,6 @@ def image_lib() -> ctypes.CDLL:
     lib.png_unfilter.restype = ctypes.c_int
     lib.resample_u8.argtypes = [u8, u8, n, n, n, n, i64, i64, i32, n]
     lib.resample_u8.restype = None
+    lib.crc32c.argtypes = [ctypes.c_char_p, n]
+    lib.crc32c.restype = ctypes.c_uint32
     return lib

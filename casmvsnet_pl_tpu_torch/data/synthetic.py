@@ -71,6 +71,11 @@ class PlaneScene:
         """Ground-truth depth (camera z) of one view, (H, W) float32."""
         W, H = self.img_wh
         u = np.arange(W, dtype=np.float32)[None].repeat(H, 0)
+        return self.depth_at(view, u)
+
+    def depth_at(self, view: int, u: np.ndarray) -> np.ndarray:
+        """Depth of one view at image columns ``u`` (any shape, float; the
+        plane's depth depends on the column only), float32."""
         dir_x = (u - self.K[0, 2]) / self.focal
         z = ((self.z0 + self.slope_x * view * self.baseline)
              / (1.0 - self.slope_x * dir_x))
@@ -137,7 +142,8 @@ class PlaneScene:
 def write_dtu_tree(root: str, scans=("scan1", "scan2"), n_cams: int = 5,
                    img_wh=(64, 64), native_wh=(256, 256), seed: int = 0,
                    z0: float = 460.0, slope_x: float = 0.3,
-                   focal: float = 100.0, lights=range(7)) -> None:
+                   focal: float = 100.0, lights=range(7),
+                   depth_crop=None) -> None:
     """Write a DTU-format tree of a :class:`PlaneScene` for data-reader
     tests, as ``casmvsnet_pl_tpu/data/synthetic.py::write_dtu_tree`` does:
     rectified PNGs at ``img_wh`` for each light in ``lights``, in both the
@@ -146,6 +152,13 @@ def write_dtu_tree(root: str, scans=("scan1", "scan2"), n_cams: int = 5,
     native) scales; a shared pair.txt. ``focal`` (pixels at ``img_wh``)
     keeps the field of view of the 64x64 default at larger sizes when it
     grows with the width.
+
+    The native depths are the ``img_wh`` depths resized nearest, unless
+    ``depth_crop`` ((r0, r1), (c0, c1)) is given: then native pixel
+    (v, u) holds the plane's depth at image column u/2 - c0, so that the
+    train split's half-resize and crop (``DTUDataset.DEPTH_CROP``) give
+    depths that line up with the ``img_wh`` images, as DTU's do (its crop
+    must be ``img_wh`` in size).
     """
     rng = np.random.RandomState(seed)
     W, H = img_wh
@@ -198,9 +211,19 @@ def write_dtu_tree(root: str, scans=("scan1", "scan2"), n_cams: int = 5,
                         root, f"Rectified/{sub}/"
                         f"rect_{vid + 1:03d}_{light}_r5000.png"), shade)
             # native-resolution depth and visibility mask
+            if depth_crop is None:
+                depth = resize_nearest(scene.depth_map(vid), native_wh)
+            else:
+                (r0, r1), (c0, c1) = depth_crop
+                if (c1 - c0, r1 - r0) != tuple(img_wh):
+                    raise ValueError(f"depth_crop {depth_crop} is not "
+                                     f"img_wh {img_wh} in size")
+                u = np.arange(native_wh[0], dtype=np.float32) / 2 - c0
+                depth = np.repeat(scene.depth_at(vid, u)[None],
+                                  native_wh[1], 0)
             save_pfm(os.path.join(root,
                                   f"Depths/{scan}/depth_map_{vid:04d}.pfm"),
-                     resize_nearest(scene.depth_map(vid), native_wh))
+                     depth)
             mask = (rng.rand(native_wh[1], native_wh[0]) > 0.1
                     ).astype(np.uint8) * 255
             write_png(os.path.join(

@@ -3,7 +3,10 @@
 ``entry`` is the counterpart of ``__graft_entry__.py::entry``: the cascade
 inference forward. ``train_entry`` is the counterpart of
 ``scripts/profile_train_step.py``: a trainer, its state and a batch at the
-reference training protocol (B=2, Adam, lr 1e-3). Both build
+reference training protocol (B=2, Adam, lr 1e-3); in a process group it
+gives this rank's rows of the global batch. ``data_parallel_step`` runs
+one step of it as one rank of several and saves what the step did. All
+build
 ``CascadeMVSNet`` at its default config (n_depths 8/32/48, interval ratios
 1/2/4, variance cost volume, sampling "auto") on synthetic plane scenes at
 640x512 with 3 views, with weights drawn from a seeded ``torch.Generator``;
@@ -22,6 +25,7 @@ from .data.loader import collate
 from .data.synthetic import PlaneScene
 from .engine.trainer import MVSTrainer
 from .models import CascadeMVSNet
+from .parallel import rank, shard_batch, world_size
 from .utils.optimizers import OptimConfig
 
 DEPTH_MIN = 425.0
@@ -106,7 +110,8 @@ def train_entry(device="cuda", dtype: torch.dtype | None = None,
                 num_groups: int = 1, **trainer_kwargs):
     """(trainer, state, batch): ``trainer.train_step(state, batch)`` runs one
     training step of ``CascadeMVSNet`` on ``batch`` plane scenes
-    (:func:`plane_sample` 0..batch-1, already on the device).
+    (:func:`plane_sample` 0..batch-1, already on the device; in a process
+    group, this rank's rows of them).
 
     ``dtype`` is the compute dtype (bf16 on a CUDA device and f32 on the
     CPU unless given); parameters stay float32. The optimizer is
@@ -127,4 +132,51 @@ def train_entry(device="cuda", dtype: torch.dtype | None = None,
                          **trainer_kwargs)
     state = trainer.init_state()
     data = collate([plane_sample(i, img_wh) for i in range(batch)])
+    data = shard_batch(data, rank(), world_size())
     return trainer, state, trainer.device_batch(data)
+
+
+def data_parallel_step(rank_: int, world: int, device: torch.device,
+                       spec: dict) -> None:
+    """One SGD step (no momentum, no weight decay) of the data-parallel
+    trainer as rank ``rank_`` of ``world`` on ``device``, in a process
+    group already joined (``parallel/dist.py::spawn`` passes the first
+    three arguments). ``spec``: ``batch`` (the global batch, a numpy batch
+    dict, or a row count of :func:`plane_sample`), ``img_wh``,
+    ``n_depths``, ``lr``, ``seed``; ``dtype`` (float32 unless given:
+    float64 is a reference on the CPU); ``weights`` (a state dict to start
+    from, else the seed's); ``deterministic`` (cuDNN's deterministic
+    algorithms); ``out`` (a path prefix). Saves to ``<out>.<rank>`` the
+    logged loss, every parameter's gradient and every buffer, on the CPU,
+    and the kernels' launches during the step."""
+    from . import kernels
+    torch.backends.cudnn.deterministic = spec.get("deterministic", False)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    global_batch = spec["batch"]
+    n = global_batch if isinstance(global_batch, int) else \
+        len(global_batch["imgs"])
+    trainer, state, batch = train_entry(
+        device, spec.get("dtype", torch.float32), batch=n,
+        img_wh=tuple(spec["img_wh"]),
+        optimizer="sgd", lr=spec["lr"], seed=spec.get("seed", 0),
+        n_depths=tuple(spec["n_depths"]),
+        optim_kwargs=dict(momentum=0.0, weight_decay=0.0))
+    if not isinstance(global_batch, int):
+        batch = trainer.device_batch(shard_batch(global_batch, rank_, world))
+    if spec.get("weights") is not None:
+        state.model.load_state_dict(spec["weights"], strict=True)
+    names = [n for n in dir(kernels) if n.endswith("_cuda")]
+    before = {n: getattr(kernels, n).launches for n in names}
+    state, logs = trainer.train_step(state, batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    torch.save({
+        "loss": float(logs["train/loss"]),
+        "logs": {k: float(v) for k, v in logs.items()},
+        "grads": {k: p.grad.detach().cpu() for k, p in
+                  state.model.named_parameters()},
+        "buffers": {k: b.detach().cpu() for k, b in
+                    state.model.named_buffers()},
+        "launches": {n: getattr(kernels, n).launches - before[n]
+                     for n in names}}, f"{spec['out']}.{rank_}")

@@ -12,6 +12,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import is_distributed, sync_batch_norm
+
 # InPlaceABN defaults: eps 1e-5, momentum 0.1 (flax 0.9), leaky slope 0.01.
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -28,12 +30,20 @@ class _FlaxBatchNorm:
     module runs ``F.batch_norm`` (batch statistics, reduced in float32
     whatever the input dtype, and torch's running update), then takes back
     the unbiased share of the variance update: a per-channel correction,
-    with no second pass over the activation. Eval mode is torch's.
+    with no second pass over the activation. Eval mode is torch's. When
+    this process is one rank of several, train mode normalizes over every
+    rank's batch (``parallel/sync_bn.py``), as the JAX trainer does over
+    its sharded batch.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if is_distributed():
+            self.num_batches_tracked.add_(1)
+            return sync_batch_norm(x, self.weight, self.bias,
+                                   self.running_mean, self.running_var,
+                                   self.momentum, self.eps)
         m = self.momentum
         n = x.numel() // x.shape[1]
         # torch's update goes into a copy, which autograd may keep

@@ -129,6 +129,41 @@ The eval path (``eval_torch.py``: inference to PFM maps and their fusion,
      40 mm box at the rig's centre (mean accuracy and overall < 0.1 mm),
      then of phase 30's PFMs (the point count); ms per reference view.
 
+The training CLI (``train_torch.py``, ``train.py``'s counterpart), in a
+temporary directory:
+ 33. write a synthetic DTU training tree at DTU's train size (one train
+     and one val scan, 5 cameras, 7 lights: 35 samples a split; PNGs at
+     640x512, depths and masks at 1600x1200, the focal length scaled to
+     keep the 64x64 tree's field of view); its native depths are written
+     so that the reader's half-resize and ``DEPTH_CROP`` line up with the
+     images, which is checked on one sample (equal to the plane's depth);
+ 34. ``train_torch.main`` in-process: the default config in bf16, global
+     batch 2, Adam lr 1e-3, one epoch (17 steps, 18 padded val batches):
+     exactly 3 K1 + 3 K2 launches a step, 3 K1 a val batch and 3 K1 for
+     the train panel's extra forward (the val panel reuses its batch's
+     outputs), and no other kernel; a finite loss whose mean over the last
+     3 steps is below that over the first 3; ``last.ckpt`` and an
+     ``epoch=`` checkpoint; the events file's scalars and both panels read
+     back through ``utils/tensorboard.py``. Prints ms per step (wall, a
+     CUDA sync a step, the loader included; median of steps 3 onward),
+     samples/s, the share of the step spent waiting on the loader, peak
+     memory, and phase 11's ``train_entry`` step beside them;
+ 35. ``--resume_path last.ckpt`` for one more epoch: the step count goes
+     on from 17 to 34 and Adam's state with it, the same launches; then
+     ``--ckpt_path last.ckpt --prefixes_to_ignore cost_reg_0
+     --num_epochs 0``: exactly the cost_reg_0 parameters are printed as
+     ignored and keep their initial values, every other one is the
+     checkpoint's;
+ 36. the data-parallel step: two ranks on the one card over gloo
+     (``parallel.spawn``; NCCL refuses two ranks on one device), one f32
+     SGD step (lr 1e-2) on a global batch of 4 distinct plane scenes at
+     640x512x3 with K1/K2 and cuDNN deterministic, against one process on
+     the same global batch: loss rtol 1e-5, BatchNorm running statistics
+     within 1e-5 relative, every gradient leaf within relative L2 of the
+     larger of 1e-3 and 3x the step's own float32 noise (one process on
+     the batch with its rows permuted, two orders, measured in the same
+     run; see ``dp_step``); 3 K1 + 3 K2 launches on each rank.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -518,8 +553,9 @@ def train_main_path(train_entry, card, steps: int, want_per_step: dict,
     return trainer, state, batch, counts
 
 
-def time_train(trainer, state, batch, card, label: str = "") -> None:
-    """bf16 train step: stage times, whole step, peak memory."""
+def time_train(trainer, state, batch, card, label: str = "") -> float:
+    """bf16 train step: stage times, whole step, peak memory; returns the
+    step's ms."""
     from casmvsnet_pl_tpu_torch.engine import model_batch_args
     from casmvsnet_pl_tpu_torch.losses import sl1_loss
 
@@ -547,6 +583,7 @@ def time_train(trainer, state, batch, card, label: str = "") -> None:
           f"{ms!r} ms/step, {2 * 1000.0 / ms!r} samples/s, peak memory "
           f"{peak!r} GiB; stages (mean of 5): forward+loss {fwd!r} ms, "
           f"backward {bwd!r} ms, optimizer {upd!r} ms [{card}]")
+    return ms
 
 
 # --- the quad configuration: TPU kernels #3-#6 ------------------------------
@@ -1352,6 +1389,280 @@ def eval_path(card) -> dict:
     return {"eval": counts, "eval_g8": g8}
 
 
+# --- the training CLI: train_torch.py at DTU's train size -------------------
+
+TRAIN_NATIVE_WH = (1600, 1200)  # DTU's depth maps and masks
+TRAIN_CROP = ((44, 556), (80, 720))  # DTUDataset.DEPTH_CROP: IMG_WH
+# the 64x64 tree's field of view (100 px at 64 px wide) at 640 px
+TRAIN_FOCAL = 1000.0
+TRAIN_SCANS = {"train": "scan1", "val": "scan2"}
+CLI_BATCH = 2
+CLI_STEPS = 17          # 35 samples, batch 2, the ragged last dropped
+CLI_VAL_BATCHES = 18    # 35 samples, the last batch padded
+CLI_EPOCH = {"cost_volume_cuda": 3 * (CLI_STEPS + CLI_VAL_BATCHES + 1),
+             "cost_volume_bwd_cuda": 3 * CLI_STEPS}
+DP_BATCH = 4
+DP_N_DEPTHS = (8, 32, 48)
+DP_ORDERS = ((2, 3, 0, 1), (1, 0, 3, 2))   # the global batch's rows permuted
+DP_NOISE = 3            # gradients: times the step's own reordering noise
+DP_STAT_TOL = 1e-5      # BatchNorm running statistics, relative
+
+
+def train_tree(work: str):
+    """Phase 33: the synthetic DTU training tree; returns (root, the
+    reader's class)."""
+    from casmvsnet_pl_tpu_torch.data import (DTUDataset, PlaneScene,
+                                             write_dtu_tree)
+
+    tree, lists = os.path.join(work, "train_tree"), os.path.join(
+        work, "train_lists")
+    t0 = time.perf_counter()
+    write_dtu_tree(tree, scans=tuple(TRAIN_SCANS.values()), n_cams=5,
+                   img_wh=IMG_WH, native_wh=TRAIN_NATIVE_WH,
+                   focal=TRAIN_FOCAL, depth_crop=TRAIN_CROP)
+    written = time.perf_counter() - t0
+    os.makedirs(lists)
+    for split, scan in TRAIN_SCANS.items():
+        with open(os.path.join(lists, f"{split}.txt"), "w") as f:
+            f.write(scan + "\n")
+
+    class ChipTrainDTU(DTUDataset):
+        NATIVE_WH = TRAIN_NATIVE_WH
+        DEPTH_CROP = TRAIN_CROP
+        N_CAMS = 5
+        LISTS_DIR = lists
+
+    ds = ChipTrainDTU(tree, "train")
+    t0 = time.perf_counter()
+    sample = ds[8]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    scene = PlaneScene(img_wh=IMG_WH, n_views=5, z0=460.0, slope_x=0.3,
+                       focal=TRAIN_FOCAL)
+    vid = sample["scan_vid"][1]
+    err = np.abs(sample["depths"]["level_0"] - scene.depth_map(vid)).max()
+    print(f"train tree: scans {TRAIN_SCANS}, 5 cameras, 7 lights, "
+          f"{len(ds)} train samples, PNGs at {IMG_WH[0]}x{IMG_WH[1]}, depths "
+          f"and masks at {TRAIN_NATIVE_WH[0]}x{TRAIN_NATIVE_WH[1]}, written "
+          f"in {written!r} s; one train sample read in {read_ms!r} ms on the "
+          f"host; its depth_0 against the plane's at view {vid}: max abs "
+          f"{err!r} mm")
+    if len(ds) != 35 or err != 0.0:
+        raise AssertionError(f"train tree: {len(ds)} samples, depth "
+                             f"misaligned by {err} mm")
+    return tree, ChipTrainDTU
+
+
+def cli_args(tree: str, *flags):
+    from casmvsnet_pl_tpu_torch.opt import get_opts
+    return get_opts(["--root_dir", tree, "--batch_size", str(CLI_BATCH),
+                     "--optimizer", "adam", "--lr", "1e-3", "--exp_name",
+                     "chip", *flags])
+
+
+def cli_epoch(tree: str, dataset_cls, card, train_entry_ms: float) -> dict:
+    """Phase 34: one epoch through ``train_torch.main``; returns its
+    launches."""
+    import train_torch
+    from casmvsnet_pl_tpu_torch.utils.tensorboard import (images,
+                                                          read_events,
+                                                          scalars)
+
+    args = cli_args(tree, "--num_epochs", "1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state = train_torch.main(args, dataset_cls, time_steps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts(counts, CLI_EPOCH, "train_torch.py epoch")
+    times = trainer.step_times
+    losses = [t["loss"] for t in times]
+    if state.step != CLI_STEPS or len(times) != CLI_STEPS:
+        raise AssertionError(f"train_torch.py: {state.step} steps")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite CLI loss {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        raise AssertionError(f"CLI loss did not fall: {losses}")
+    files = os.listdir("ckpts/chip")
+    if "last.ckpt" not in files or not any(f.startswith("epoch=")
+                                           for f in files):
+        raise AssertionError(f"checkpoints: {files}")
+    (name,) = os.listdir("logs/chip")
+    events = read_events(os.path.join("logs/chip", name))
+    tags = scalars(events)
+    panels = images(events)
+    want_tags = {"train/loss", "train/abs_err", "train/acc_1mm",
+                 "train/acc_2mm", "train/acc_4mm", "lr", "val/loss",
+                 "val/abs_err", "val/acc_1mm", "val/acc_2mm", "val/acc_4mm"}
+    W, H = IMG_WH
+    shapes = {k: v[0][1].shape for k, v in panels.items()}
+    if set(tags) != want_tags or shapes != {
+            "train/image_GT_pred_prob": (H, 4 * W, 3),
+            "val/image_GT_pred_prob": (H, 4 * W, 3)}:
+        raise AssertionError(f"events: {sorted(tags)}, panels {shapes}")
+    steady = times[2:]
+    ms = statistics.median(t["step_s"] for t in steady) * 1e3
+    wait = sum(t["wait_s"] for t in steady) / sum(t["step_s"]
+                                                  for t in steady)
+    print(f"train_torch.py bf16 {W}x{H}x3 batch {CLI_BATCH} adam lr 1e-3, "
+          f"one epoch ({CLI_STEPS} steps, {CLI_VAL_BATCHES} val batches) in "
+          f"{wall!r} s: losses {losses!r}; val {tags['val/acc_2mm']!r} "
+          f"acc_2mm; launches {counts}; files {sorted(files)}; events "
+          f"{len(events)} ({sorted(shapes)})")
+    print(f"timing train_torch.py step (wall, CUDA sync a step, loader "
+          f"included, median of steps 3-{CLI_STEPS}): {ms!r} ms/step, "
+          f"{CLI_BATCH * 1000.0 / ms!r} samples/s, loader wait "
+          f"{100 * wait!r} % of the step; peak memory {peak!r} GiB; "
+          f"train_entry's step (phase 11, one batch on the card) "
+          f"{train_entry_ms!r} ms [{card}]")
+    return counts
+
+
+def cli_resume(tree: str, dataset_cls) -> None:
+    """Phase 35: full resume, then warm start with an ignored prefix."""
+    import contextlib
+    import io
+
+    import train_torch
+    from casmvsnet_pl_tpu_torch.utils import load_checkpoint
+
+    reset_counts()
+    trainer, state = train_torch.main(cli_args(
+        tree, "--num_epochs", "1", "--resume_path", "ckpts/chip/last.ckpt"),
+        dataset_cls)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, CLI_EPOCH, "train_torch.py resumed epoch")
+    adam_steps = {int(st["step"]) for st in
+                  state.optimizer.state_dict()["state"].values()}
+    print(f"train_torch.py --resume_path last.ckpt --num_epochs 1: step "
+          f"{state.step}, Adam's step counts {sorted(adam_steps)}, "
+          f"checkpoints {sorted(os.listdir('ckpts/chip'))}")
+    if state.step != 2 * CLI_STEPS or adam_steps != {2 * CLI_STEPS}:
+        raise AssertionError("resume did not continue the step count")
+    del trainer, state
+
+    ckpt = load_checkpoint("ckpts/chip/last.ckpt")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, state = train_torch.main(cli_args(
+            tree, "--num_epochs", "0", "--exp_name", "warm", "--ckpt_path",
+            "ckpts/chip/last.ckpt", "--prefixes_to_ignore", "cost_reg_0"),
+            dataset_cls)
+    ignored = sorted(line[len("ignore "):] for line in
+                     out.getvalue().splitlines() if line.startswith("ignore "))
+    want = sorted(k for k in ckpt["params"] if k.startswith("cost_reg_0"))
+    params = {k: v.detach().cpu() for k, v in
+              state.model.named_parameters()}
+    loaded = [k for k, v in ckpt["params"].items() if torch.equal(params[k],
+                                                                  v)]
+    print(f"train_torch.py --ckpt_path last.ckpt --prefixes_to_ignore "
+          f"cost_reg_0: {len(ignored)} names ignored ({ignored[:2]} ...), "
+          f"{len(loaded)} of {len(params)} parameters equal to the "
+          f"checkpoint's")
+    if ignored != want or sorted(set(params) - set(loaded)) != want:
+        raise AssertionError("warm start loaded the wrong parameters")
+
+
+def step_differences(got: dict, want: dict) -> tuple[float, float]:
+    """(worst gradient leaf relative L2, worst BatchNorm running statistic
+    relative to its buffer's largest value) of two saved steps
+    (``entry.data_parallel_step``); the prob convs' biases, whose exact
+    gradient is 0, against their weights' gradient (as phase 9)."""
+    g = want["grads"]
+
+    def scale(n):
+        return g[n.replace("prob.bias", "prob.weight")].double().norm()
+
+    grads = max(((got["grads"][n].double() - g[n].double()).norm()
+                 / scale(n)).item() for n in g)
+    stats = max(((got["buffers"][n].double() - b.double()).abs().max()
+                 / b.double().abs().max()).item()
+                for n, b in want["buffers"].items()
+                if n.endswith(("running_mean", "running_var")))
+    return grads, stats
+
+
+def dp_step(work: str, card) -> None:
+    """Phase 36: two ranks on the one card (gloo) against one process.
+
+    The gradients are held to the larger of GRAD_REL_TOL and DP_NOISE
+    times the step's own float32 noise: the difference between one
+    process's step and the same step with the batch's rows permuted (the
+    same sums in another order), the worse of two permutations, measured
+    in this run. The step amplifies rounding: on an NVIDIA H100 80GB HBM3
+    that difference read 3.9e-3 relative L2, above GRAD_REL_TOL (and the
+    two ranks' difference 3.5e-3; PERF.md). BatchNorm statistics and the
+    loss keep their fixed bounds."""
+    from casmvsnet_pl_tpu_torch.data import collate
+    from casmvsnet_pl_tpu_torch.entry import data_parallel_step, plane_sample
+    from casmvsnet_pl_tpu_torch.parallel import spawn
+
+    spec = dict(batch=DP_BATCH, img_wh=IMG_WH, n_depths=DP_N_DEPTHS,
+                lr=1e-2, deterministic=True, out=os.path.join(work, "dp"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(data_parallel_step, 2, (spec,), cpu=DEVICE == "cpu",
+          backend="gloo", timeout_s=600, pg_timeout_s=600)
+    spawned = time.perf_counter() - t0
+    device = torch.device(DEVICE, 0)
+    data_parallel_step(0, 1, device, dict(spec, out=spec["out"] + ".one"))
+    one = torch.load(spec["out"] + ".one.0")
+    noise = []
+    for i, order in enumerate(DP_ORDERS):
+        data_parallel_step(0, 1, device, dict(
+            spec, batch=collate([plane_sample(j, IMG_WH) for j in order]),
+            out=spec["out"] + f".perm{i}"))
+        perm = torch.load(spec["out"] + f".perm{i}.0")
+        noise.append(step_differences(perm, one) + (perm["loss"],))
+    torch.backends.cudnn.deterministic = False
+    ranks = [torch.load(f"{spec['out']}.{r}") for r in range(2)]
+    worst, stats = step_differences(ranks[0], one)
+    grad_tol = max(GRAD_REL_TOL, DP_NOISE * max(n[0] for n in noise))
+    same = all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n])
+               for n in one["grads"])
+    print(f"data-parallel f32 SGD step, 2 ranks on one card over gloo, "
+          f"global batch {DP_BATCH} at {IMG_WH[0]}x{IMG_WH[1]}x3 ({spawned!r} "
+          f"s with the ranks' start): loss {ranks[0]['loss']!r} against one "
+          f"process's {one['loss']!r}; worst gradient leaf relative L2 "
+          f"{worst!r} (bound {grad_tol!r}); BatchNorm statistics max "
+          f"relative {stats!r} (bound {DP_STAT_TOL}); one process with the "
+          f"rows permuted {list(DP_ORDERS)} against it (gradients, "
+          f"statistics, loss): {noise!r}; ranks' gradients equal {same}; "
+          f"launches rank 0 {ranks[0]['launches']}, rank 1 "
+          f"{ranks[1]['launches']}, one process {one['launches']} [{card}]")
+    for r in ranks + [one]:
+        expect_counts(r["launches"], DEFAULT_STEP, "data-parallel step")
+    if not abs(ranks[0]["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"]):
+        raise AssertionError("data-parallel loss differs")
+    if not (worst <= grad_tol and stats <= DP_STAT_TOL and same):
+        raise AssertionError("data-parallel step differs from one process")
+
+
+def cli_path(card, train_entry_ms: float) -> dict:
+    """Phases 33-36 in a temporary directory; returns the launches of the
+    CLI's epoch (phase 34)."""
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        try:
+            tree, dataset_cls = train_tree(work)
+            os.chdir(work)
+            counts = cli_epoch(tree, dataset_cls, card, train_entry_ms)
+            cli_resume(tree, dataset_cls)
+            torch.cuda.empty_cache()
+            dp_step(work, card)
+        finally:
+            os.chdir(cwd)
+    print(f"train CLI path (phases 33-36): {time.perf_counter() - t0!r} s "
+          f"wall")
+    return {"train_cli": counts}
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -1391,7 +1702,7 @@ def main() -> int:
     check_train_step(train_entry, plain, DEFAULT_STEP)
     trainer, state, batch, paths["train"] = train_main_path(
         train_entry, card, TRAIN_STEPS, DEFAULT_STEP)
-    time_train(trainer, state, batch, card)
+    train_entry_ms = time_train(trainer, state, batch, card)
     del trainer, state, batch
     torch.cuda.empty_cache()
 
@@ -1429,6 +1740,7 @@ def main() -> int:
     probe_results, paths["probes"] = probes_path(card)
     host_costs(card)
     paths.update(eval_path(card))
+    paths.update(cli_path(card, train_entry_ms))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -1441,7 +1753,7 @@ def main() -> int:
         return {p: paths[p].get(name, 0) for p in keys}
 
     default_paths = ("inference", "train", "quad_inference", "quad_train",
-                     "eval", "eval_g8")
+                     "eval", "eval_g8", "train_cli")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

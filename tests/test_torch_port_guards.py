@@ -1,5 +1,6 @@
-"""Cheap guards on the port: no JAX, PIL or OpenCV inside it or in
-``eval_torch.py``, no CPU fallback on the card path, and its main paths
+"""Cheap guards on the port: no JAX, PIL, OpenCV or tensorboardX inside it
+or in ``eval_torch.py`` and ``train_torch.py``, no CPU fallback on the card
+path, and its main paths
 (inference and a train step, default and quad configurations, the
 packed-quad warp, and the probes' plain versions) run end to end on the
 CPU at a small size without launching a kernel."""
@@ -15,15 +16,23 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+BANNED = ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'tensorboardX',
+          'casmvsnet_pl_tpu')
+
+
 def test_package_imports_no_jax_pil_or_cv2():
+    """No JAX, PIL, OpenCV or tensorboardX in any module of the package."""
     code = (
         "import pkgutil, sys, casmvsnet_pl_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: __import__(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'casmvsnet_pl_tpu'))\n"
-        "assert len(mods) >= 25, mods\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "assert len(mods) >= 55, mods\n"
+        "for m in ('opt', 'parallel.dist', 'parallel.sync_bn', "
+        "'utils.tensorboard', 'utils.visualization'):\n"
+        "    assert 'casmvsnet_pl_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -38,8 +47,7 @@ def test_chip_smoke_imports_no_jax():
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module]
     assert "casmvsnet_pl_tpu_torch.entry" in names
-    bad = [m for m in names if m.split(".")[0] in
-           ("jax", "jaxlib", "flax", "casmvsnet_pl_tpu")]
+    bad = [m for m in names if m.split(".")[0] in BANNED]
     assert not bad, bad
 
 
@@ -273,15 +281,37 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
     assert _all_launches() == before
 
 
-def test_eval_torch_imports_no_jax_pil_or_cv2():
+def _script_imports_nothing_banned(script):
     code = (
-        "import sys, eval_torch\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'casmvsnet_pl_tpu'))\n"
+        f"import sys, {script}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r})\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_eval_torch_imports_no_jax_pil_or_cv2():
+    _script_imports_nothing_banned("eval_torch")
+
+
+def test_train_torch_imports_no_jax_pil_cv2_or_tensorboardx():
+    _script_imports_nothing_banned("train_torch")
+
+
+def test_train_torch_defaults_to_the_card():
+    import train_torch
+    from casmvsnet_pl_tpu_torch.opt import get_opts
+
+    args = get_opts([])
+    assert not args.cpu
+    assert train_torch.resolve_device(get_opts(["--cpu"])).type == "cpu"
+    if torch.cuda.is_available():
+        assert train_torch.resolve_device(args).type == "cuda"
+    else:
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            train_torch.resolve_device(args)
 
 
 def test_eval_torch_fails_without_a_card(tmp_path):
