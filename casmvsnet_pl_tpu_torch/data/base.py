@@ -2,7 +2,10 @@
 depth and mask pyramids.
 
 The port's counterpart of ``casmvsnet_pl_tpu/data/base.py``, free of PIL
-and OpenCV. The resamplers reproduce the ones the JAX package calls:
+and OpenCV. :func:`load_image` reads PNGs (``data/png.py``) and JPEGs
+(``data/jpeg.py``) to the pixels PIL gives, :func:`load_image_cv2` to
+those ``cv2.imread`` gives. The resamplers reproduce the ones the JAX
+package calls:
 - :func:`resize_bilinear_pil`: PIL's ``BILINEAR`` resize of uint8 images,
   which feeds the model (``load_image``). On a downscale it is a separable
   triangle filter whose support widens with the scale (an antialiasing
@@ -24,8 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .jpeg import decode_jpeg, is_jpeg, orient
 from .native import image_lib
-from .png import read_png, to_rgb
+from .png import decode_png, to_rgb
 
 # ImageNet statistics, as in the reference transforms
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -97,12 +101,29 @@ def resize_bilinear_pil(img: np.ndarray, img_wh: tuple[int, int]
 
 def load_image(path: str, img_wh: tuple[int, int] | None = None
                ) -> np.ndarray:
-    """Read a PNG as RGB; optionally resize to (w, h) as PIL's BILINEAR.
-    Returns uint8 (H, W, 3)."""
-    img = to_rgb(read_png(path))
+    """Read a PNG or a JPEG (told apart by their signatures, as PIL's
+    ``Image.open`` does; a JPEG's EXIF orientation is ignored, as there)
+    as RGB; optionally resize to (w, h) as PIL's BILINEAR. Returns uint8
+    (H, W, 3)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    img = to_rgb(decode_jpeg(data, path)[0] if is_jpeg(data)
+                 else decode_png(data, path))
     if img_wh is not None:
         img = resize_bilinear_pil(img, tuple(img_wh))
     return img
+
+
+def load_image_cv2(path: str) -> np.ndarray:
+    """Read a PNG or a JPEG as RGB uint8 (H, W, 3) as
+    ``cv2.imread(path)[..., ::-1]`` reads it: a JPEG is turned as its EXIF
+    orientation says (``load_image`` ignores it, as PIL does)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not is_jpeg(data):
+        return to_rgb(decode_png(data, path))
+    img, orientation = decode_jpeg(data, path)
+    return orient(to_rgb(img), orientation)
 
 
 def resize_nearest(img: np.ndarray, img_wh: tuple[int, int]) -> np.ndarray:

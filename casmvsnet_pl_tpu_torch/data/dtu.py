@@ -120,6 +120,16 @@ class DTUDataset:
             mask_0 = resize_nearest(mask, self.img_wh)
         return mask_pyramid(mask_0 > 0, self.levels)
 
+    def image_path(self, scan: str, vid: int) -> str:
+        """The view's image that fusion colours its points from (light 3,
+        as ``eval.py``)."""
+        return os.path.join(
+            self.root_dir, f"Rectified/{scan}/rect_{vid + 1:03d}_3_r5000.png")
+
+    def proj_mat(self, scan: str, vid: int) -> np.ndarray:
+        """The view's full-resolution (level 0) 4x4 projection."""
+        return self.proj_mats[vid][0][0]
+
     # -- sequence protocol -------------------------------------------------
     def __len__(self):
         return len(self.metas)

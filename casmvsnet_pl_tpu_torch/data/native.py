@@ -1,9 +1,11 @@
-"""Build and bind ``image_native.c``, the data readers' host loops (and the
-CRC-32C of the TensorBoard event writer).
+"""Build and bind the data readers' host loops: ``image_native.c`` (and
+the CRC-32C of the TensorBoard event writer) and ``jpeg_native.c`` (the
+JPEG codec, bound in ``jpeg.py``).
 
-Compiled with the host C compiler at first use into ``_build/`` inside the
-package (once per source hash) and loaded with ``ctypes``. There is no
-fallback: if the build fails, the caller gets the compiler's error.
+Each is compiled with the host C compiler at first use into ``_build/``
+inside the package (once per source hash) and loaded with ``ctypes``.
+There is no fallback: if the build fails, the caller gets the compiler's
+error.
 """
 from __future__ import annotations
 
@@ -17,31 +19,39 @@ from pathlib import Path
 
 import numpy as np
 
-_SOURCE = Path(__file__).resolve().parent / "image_native.c"
+_SOURCE_DIR = Path(__file__).resolve().parent
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+
+def build_library(stem: str) -> ctypes.CDLL:
+    """Compile ``<stem>.c`` of this directory (once per source hash) and
+    load it. Raises ``RuntimeError`` with the compiler's output when the
+    build fails."""
+    source = _SOURCE_DIR / f"{stem}.c"
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    so_path = _BUILD_DIR / f"{stem}_{digest}.so"
+    if not so_path.exists():
+        cc = shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            raise RuntimeError("no C compiler (cc, gcc) on PATH: the host "
+                               f"loops are built from {source}")
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cc, "-O3", "-shared", "-fPIC", str(source), "-o", str(tmp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {source.name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, so_path)
+    return ctypes.CDLL(str(so_path))
 
 
 @functools.cache
 def image_lib() -> ctypes.CDLL:
     """The compiled ``image_native.c``: ``png_unfilter``, ``resample_u8``
     and ``crc32c``, with their argument types declared."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    so_path = _BUILD_DIR / f"image_native_{digest}.so"
-    if not so_path.exists():
-        cc = shutil.which("cc") or shutil.which("gcc")
-        if cc is None:
-            raise RuntimeError("no C compiler (cc, gcc) on PATH: the image "
-                               f"loops are built from {_SOURCE}")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, "-O3", "-shared", "-fPIC", str(_SOURCE), "-o", str(tmp)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {_SOURCE.name} failed "
-                               f"({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
+    lib = build_library("image_native")
     u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

@@ -6,7 +6,9 @@ rotation. The texture's cubic upsample uses ``F.interpolate(mode=
 "bicubic")`` in place of OpenCV, so the images are alike but not bit-equal
 to the JAX package's; the geometry (depths, cameras, surface points) is
 the same. ``write_dtu_tree`` materializes the scene in DTU's on-disk format
-(pair.txt, cam.txt, PFM depths, mask PNGs, rectified PNGs).
+(pair.txt, cam.txt, PFM depths, mask PNGs, rectified PNGs);
+``write_blendedmvs_tree`` and ``write_tanks_tree`` in those datasets'
+layouts, with JPEGs from ``data/jpeg.py::encode_jpeg`` (cv2.imwrite's file).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from .base import IMAGENET_MEAN, IMAGENET_STD, resize_nearest
 from .cams import relative_proj_mats
+from .jpeg import write_jpeg
 from .pfm import save_pfm
 from .png import write_png
 
@@ -228,3 +231,111 @@ def write_dtu_tree(root: str, scans=("scan1", "scan2"), n_cams: int = 5,
                     ).astype(np.uint8) * 255
             write_png(os.path.join(
                 root, f"Depths/{scan}/depth_visual_{vid:04d}.png"), mask)
+
+
+def _write_pairs(path: str, n_cams: int, n_src: int = 10) -> None:
+    """pair.txt: each view lists its ``n_src`` nearest views on the rig,
+    best first."""
+    with open(path, "w") as f:
+        f.write(f"{n_cams}\n")
+        for ref in range(n_cams):
+            srcs = sorted((v for v in range(n_cams) if v != ref),
+                          key=lambda v: (abs(v - ref), v))[:n_src]
+            f.write(f"{ref}\n{len(srcs)} " +
+                    " ".join(f"{v} {100.0 - i:.1f}" for i, v in
+                             enumerate(srcs)) + "\n")
+
+
+def _write_cam(path: str, K: np.ndarray, E: np.ndarray, depth_line: str
+               ) -> None:
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        for row in E:
+            f.write(" ".join(f"{x:.9g}" for x in row) + "\n")
+        f.write("\nintrinsic\n")
+        for row in K:
+            f.write(" ".join(f"{x:.9g}" for x in row) + "\n")
+        f.write(f"\n{depth_line}\n")
+
+
+def write_blendedmvs_tree(root: str, n_cams: int = 10, img_wh=(768, 576),
+                          z0: float = 460.0) -> str:
+    """Write a BlendedMVS-format tree of a :class:`PlaneScene` for a train
+    scene (``synth_train``) and a val scene (``synth_val``) and return the
+    reader's root, ``<root>/dataset_low_res``: the split lists
+    ``{training,validation,all}_list.txt`` in ``root``; per scene
+    ``blended_images/*.jpg`` (cv2.imwrite's JPEGs at ``img_wh``, the
+    native size), ``rendered_depth_maps/*.pfm``, ``cams/*_cam.txt``
+    (depth_min 0.8 * z0, then interval, count and depth_max as BlendedMVS
+    writes them) and ``cams/pair.txt``. The field of view is the 64x64
+    scene's (100 px at 64 wide); the scenes' textures are seeded 0 and
+    1."""
+    W = img_wh[0]
+    data_root = os.path.join(root, "dataset_low_res")
+    splits = {"training_list.txt": ["synth_train"],
+              "validation_list.txt": ["synth_val"],
+              "all_list.txt": ["synth_train", "synth_val"]}
+    os.makedirs(data_root, exist_ok=True)
+    for name, items in splits.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("".join(f"{s}\n" for s in items))
+    for k, scan in enumerate(splits["all_list.txt"]):
+        for sub in ("blended_images", "rendered_depth_maps", "cams"):
+            os.makedirs(os.path.join(data_root, scan, sub), exist_ok=True)
+        scene = PlaneScene(img_wh=img_wh, n_views=n_cams, seed=k, z0=z0,
+                           slope_x=0.3, focal=100.0 * W / 64)
+        _write_pairs(os.path.join(data_root, scan, "cams/pair.txt"), n_cams)
+        d_min = 0.8 * z0
+        for vid in range(n_cams):
+            _write_cam(os.path.join(data_root, scan,
+                                    f"cams/{vid:08d}_cam.txt"),
+                       scene.K, scene.extrinsics[vid],
+                       f"{d_min} {(1.2 * z0 - d_min) / 128} 128 {1.2 * z0}")
+            save_pfm(os.path.join(data_root, scan,
+                                  f"rendered_depth_maps/{vid:08d}.pfm"),
+                     scene.depth_map(vid))
+            write_jpeg(os.path.join(data_root, scan,
+                                    f"blended_images/{vid:08d}.jpg"),
+                       (scene.render(vid) * 255).astype(np.uint8))
+    return data_root
+
+
+def write_tanks_tree(root: str, split: str = "intermediate",
+                     image_scans=("Family",), n_cams: int = 5,
+                     z0: float = 1.0, slope_x: float = 0.1,
+                     baseline: float = 0.05, image_scale: float = 1.0
+                     ) -> None:
+    """Write a Tanks-and-Temples-format tree under ``<root>/<split>``: for
+    every scan of the split (the reader reads each one's cameras) a
+    ``pair.txt`` and ``cams/*_cam.txt`` at the scan's native size, and for
+    the scans of ``image_scans`` ``images/*.jpg`` of a :class:`PlaneScene`
+    (cv2.imwrite's JPEGs) at the native size times ``image_scale``. The
+    scene sits at depth ``z0`` (scene units, like Tanks' own) and every
+    camera's depth_min is 0.8 * z0, so that the swept range (Family:
+    48 * 4 * 2.5e-3 = 0.48 units at the coarsest level) holds it; each
+    scan's texture is seeded with its index."""
+    from .tanks import (ADVANCED_SCANS, ADVANCED_SIZES, INTERMEDIATE_SCANS,
+                        INTERMEDIATE_SIZES)
+    scans, sizes = ((INTERMEDIATE_SCANS, INTERMEDIATE_SIZES)
+                    if split == "intermediate"
+                    else (ADVANCED_SCANS, ADVANCED_SIZES))
+    for k, scan in enumerate(scans):
+        W, H = sizes[scan]
+        img_wh = (round(W * image_scale), round(H * image_scale))
+        scene = PlaneScene(img_wh=img_wh, n_views=n_cams, seed=k,
+                           z0=z0, slope_x=slope_x,
+                           focal=1.2 * img_wh[0], baseline=baseline)
+        K = scene.K.copy()
+        K[0] *= W / img_wh[0]                 # cameras at the native size
+        K[1] *= H / img_wh[1]
+        scan_dir = os.path.join(root, split, scan)
+        os.makedirs(os.path.join(scan_dir, "cams"), exist_ok=True)
+        _write_pairs(os.path.join(scan_dir, "pair.txt"), n_cams)
+        for vid in range(n_cams):
+            _write_cam(os.path.join(scan_dir, f"cams/{vid:08d}_cam.txt"), K,
+                       scene.extrinsics[vid], f"{0.8 * z0} {z0 / 400}")
+        if scan in image_scans:
+            os.makedirs(os.path.join(scan_dir, "images"), exist_ok=True)
+            for vid in range(n_cams):
+                write_jpeg(os.path.join(scan_dir, f"images/{vid:08d}.jpg"),
+                           (scene.render(vid) * 255).astype(np.uint8))

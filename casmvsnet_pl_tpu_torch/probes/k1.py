@@ -48,6 +48,7 @@ CASES = {   # name: (img_wh, views, batch, groups)
     "step": ((640, 512), 3, 2, 1),
     "g8": ((640, 512), 3, 1, 8),
     "eval": ((1152, 864), 5, 1, 1),
+    "bmvs_step": ((768, 576), 3, 2, 1),     # BlendedMVS's train step
 }
 
 

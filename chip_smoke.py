@@ -164,6 +164,43 @@ temporary directory:
      the batch with its rows permuted, two orders, measured in the same
      run; see ``dp_step``); 3 K1 + 3 K2 launches on each rank.
 
+The JPEG datasets (BlendedMVS, Tanks and Temples), in a temporary
+directory that holds phase 34's ``last.ckpt``:
+ 37. the port's JPEG codec on the host: the plane's texture at 1920x1080
+     and 768x576, encoded and decoded baseline 4:2:0, 4:4:4, progressive
+     and with a restart interval; ms per image (median of 3) and the round
+     trip's PSNR (>= 40 dB: quality 95 gives 43-49 dB on this texture);
+     the progressive and restart files (the same coefficients) decode
+     equal to the baseline file;
+ 38. a synthetic BlendedMVS tree (one train and one val scene, 12 cameras
+     each, JPEGs at 768x576); K1 (bit-equal in f32, 1 bf16 ulp) and K2 (as
+     phase 8) against their plain versions at its train shapes
+     (768x576x3, B=2); ``train_torch.main --dataset_name blendedmvs
+     --depth_interval 192`` for one bf16 epoch at batch 2 (6 steps, 6 val
+     batches): exactly 3 K1 + 3 K2 a step, 3 K1 a val batch and 3 for the
+     panel, no other kernel; a finite loss whose last two steps average
+     below the first two; ms per step (wall, the loader included),
+     samples/s, the loader-wait share, peak memory; then the warm start
+     ``--ckpt_path`` phase 34's DTU checkpoint: every parameter the
+     checkpoint's;
+ 39. a synthetic Tanks and Temples tree (intermediate split, every scan's
+     cameras, Family's JPEGs at 1920x1080, 5 cameras);
+     ``eval_torch.run_inference`` in bf16 at 1152x864x5 over Family:
+     exactly 15 K1 launches, depths finite and inside the swept range; ms
+     per view (the forward, CUDA events; and with the JPEG reading), peak
+     memory; one f32 view with K1 against the plain cost volume (within
+     0.05 mm scaled from DTU's 2.65 mm interval to Family's 2.5e-3 units);
+     one bf16 forward at 1920x1056x5 for its peak memory;
+     ``eval_torch.run_fusion`` of the plane's exact depths (confidence 1):
+     every fused point within 2.5e-5 units of the plane;
+ 40. ``eval_torch.main --dataset_name blendedmvs --split val --img_wh 768
+     576 --save_visual`` on phase 38's tree: 36 K1 launches for its 12
+     views, the PFMs' shapes, a PLY of finite points, and the two visual
+     JPEGs a view decoded by the port; then ``eval_torch.run_fusion`` of
+     the scene's ground-truth depths (confidence 1): a cloud of points,
+     99.9 % of them within 1e-3 units of the plane z = 125 + 0.3 x and
+     every one within 1 unit;
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -227,9 +264,9 @@ PROBE_KERNELS = ("lane_prefix_copy_cuda", "row_gather_ldg_cuda",
                  "patch_epilogue_t_cuda")
 
 
-def levels():
+def levels(img_wh=None):
     """(level, C, D, h, w) of the default config, coarse to fine."""
-    return default_levels(IMG_WH)
+    return default_levels(img_wh or IMG_WH)
 
 
 def toolchain() -> str:
@@ -267,11 +304,11 @@ def build_kernel(kernel) -> None:
           f"spill stores max {max(spills, default='n/a (cached)')} bytes")
 
 
-def level_inputs(batch: int = 1):
+def level_inputs(batch: int = 1, img_wh=None):
     """Per level: (proj (B, 2, 3, 4), depth windows (B, D, h, w)), built
     the way the cascade builds them, on the plane scene, repeated B
     times."""
-    return plane_levels(DEVICE, batch, IMG_WH)
+    return plane_levels(DEVICE, batch, img_wh or IMG_WH)
 
 
 def all_kernels() -> dict:
@@ -432,12 +469,12 @@ def time_forward(entry, card, label: str = "", **kw) -> None:
         del fn, args
 
 
-def check_bwd(kernel_bwd, plain_bwd, inputs2) -> float:
-    """K2 vs its plain version at every level shape, B=2; returns the max
-    f32 abs error."""
+def check_bwd(kernel_bwd, plain_bwd, inputs2, img_wh=None) -> float:
+    """K2 vs its plain version at every level shape of ``img_wh`` (the
+    train shape by default), B=2; returns the max f32 abs error."""
     g = torch.Generator(device=DEVICE).manual_seed(2)
     worst = 0.0
-    for l, C, D, h, w in levels():
+    for l, C, D, h, w in levels(img_wh):
         proj, dv = inputs2[l]
         feats = torch.rand((2, 3, h, w, C), generator=g, device=DEVICE)
         for groups in (1, 8):
@@ -469,7 +506,7 @@ def check_bwd(kernel_bwd, plain_bwd, inputs2) -> float:
     # the autograd Function (K1 forward, K2 backward) at L2, f32
     from casmvsnet_pl_tpu_torch.ops import (build_cost_volume,
                                             plain_cost_volume)
-    l, C, D, h, w = levels()[0]
+    l, C, D, h, w = levels(img_wh)[0]
     proj, dv = inputs2[l]
     feats = torch.rand((2, 3, h, w, C), generator=g, device=DEVICE,
                        requires_grad=True)
@@ -1097,8 +1134,8 @@ EVAL_FWD = scaled(DEFAULT_FWD, EVAL_VIEWS)
 
 
 def image_libraries() -> None:
-    """Phase 28: which image libraries import on this machine (the JPEG
-    readers of BlendedMVS and Tanks and Temples wait on the answer)."""
+    """Phase 28: which image libraries import on this machine (the port
+    needs none of them; the JAX package reads with PIL and cv2)."""
     code = ("import importlib\n"
             "for name in ('PIL', 'cv2', 'imageio', 'tqdm', 'tensorboardX'):\n"
             "    try:\n"
@@ -1643,9 +1680,12 @@ def dp_step(work: str, card) -> None:
         raise AssertionError("data-parallel step differs from one process")
 
 
-def cli_path(card, train_entry_ms: float) -> dict:
+def cli_path(card, train_entry_ms: float, keep: str | None = None) -> dict:
     """Phases 33-36 in a temporary directory; returns the launches of the
-    CLI's epoch (phase 34)."""
+    CLI's epoch (phase 34), whose ``last.ckpt`` is copied into ``keep``
+    (for phase 38's warm start)."""
+    import shutil
+
     cwd = os.getcwd()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
@@ -1653,6 +1693,9 @@ def cli_path(card, train_entry_ms: float) -> dict:
             tree, dataset_cls = train_tree(work)
             os.chdir(work)
             counts = cli_epoch(tree, dataset_cls, card, train_entry_ms)
+            if keep:
+                shutil.copy("ckpts/chip/last.ckpt",
+                            os.path.join(keep, "dtu_last.ckpt"))
             cli_resume(tree, dataset_cls)
             torch.cuda.empty_cache()
             dp_step(work, card)
@@ -1661,6 +1704,416 @@ def cli_path(card, train_entry_ms: float) -> dict:
     print(f"train CLI path (phases 33-36): {time.perf_counter() - t0!r} s "
           f"wall")
     return {"train_cli": counts}
+
+
+# --- the JPEG datasets: BlendedMVS training, Tanks and BlendedMVS inference -
+
+JPEG_SIZES = ((1920, 1080), (768, 576))     # Tanks' and BlendedMVS' images
+JPEG_MODES = {"baseline 4:2:0": {}, "4:4:4": {"subsampling": "4:4:4"},
+              "progressive": {"progressive": True},
+              "restart interval 16": {"restart_interval": 16}}
+# the quality-95 round trip of the plane's smooth texture: 43-49 dB on the
+# host (4:2:0 at 768x576 the lowest); a broken codec lands far below
+JPEG_PSNR_DB = 40.0
+BMVS_NATIVE_WH = (768, 576)     # dataset_low_res's images
+BMVS_WH = (768, 576)            # BlendedMVSDataset's default img_wh
+BMVS_CAMS = 12                  # a scene: 12 reference views, 10 sources each
+BMVS_DEPTHS = 192               # --depth_interval: hypotheses in all
+BMVS_STEPS = BMVS_CAMS // CLI_BATCH
+BMVS_VAL_BATCHES = BMVS_CAMS // CLI_BATCH
+BMVS_EPOCH = {"cost_volume_cuda": 3 * (BMVS_STEPS + BMVS_VAL_BATCHES + 1),
+              "cost_volume_bwd_cuda": 3 * BMVS_STEPS}
+BMVS_EVAL_VIEWS = 5             # eval_torch.py's --n_views default
+TANKS_SCAN = "Family"
+TANKS_CAMS = 5
+TANKS_IMAGE_SCALE = 1.0         # Family's JPEGs at its native 1920x1080
+TANKS_WH = (1152, 864)          # eval.py's resolution
+TANKS_MEMORY_WH = (1920, 1056)  # Family's native width, height to 32
+TANKS_Z0 = 1.0                  # the plane's depth, scene units
+TANKS_SLOPE = 0.1               # z = z0 + slope * X (write_tanks_tree's)
+# DEPTH_TOL_MM is 0.05 mm at DTU's 2.65 mm interval: the same share of
+# Family's interval (2.5e-3 units)
+TANKS_DEPTH_TOL = DEPTH_TOL_MM / 2.65 * 2.5e-3
+# the fused ground-truth cloud's distance to the plane, scene units: a
+# hundredth of Family's interval
+TANKS_PLANE_TOL = 2.5e-5
+# BlendedMVS' plane, rescaled by the reader's 100 / depth_min (depth_min
+# 0.8 z0): z = 125 + 0.3 x. The fused ground-truth cloud's distance to it,
+# units: 99.9 % of the points within 8 ppm of the depth (~130 float32
+# steps at 125), every point within 1 unit (on the CPU, eval.py's fusion
+# of the same 12 maps puts 0.04 % of its points, one pixel column where
+# the sources' sampling meets an image edge, 0.136 units off)
+BMVS_PLANE_Z0, BMVS_PLANE_SLOPE = 125.0, 0.3
+BMVS_PLANE_TOL, BMVS_PLANE_MAX = 1e-3, 1.0
+
+
+def jpeg_codec(card) -> None:
+    """Phase 37: encode then decode the plane's texture at Tanks' and
+    BlendedMVS' image sizes in each JPEG mode; the round trip within
+    JPEG_PSNR_DB, and the progressive and restart files (the same
+    coefficients) decoded equal to the baseline file."""
+    from casmvsnet_pl_tpu_torch.data import PlaneScene
+    from casmvsnet_pl_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    for wh in JPEG_SIZES:
+        img = (PlaneScene(img_wh=wh, focal=1.2 * wh[0]).render(0)
+               * 255).astype(np.uint8)
+        decoded = {}
+        for mode, kw in JPEG_MODES.items():
+            enc, dec = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                data = encode_jpeg(img, **kw)
+                t1 = time.perf_counter()
+                out, _ = decode_jpeg(data)
+                enc.append((t1 - t0) * 1e3)
+                dec.append((time.perf_counter() - t1) * 1e3)
+            err = out.astype(np.float64) - img
+            psnr = 10 * math.log10(255 ** 2 / max((err ** 2).mean(), 1e-12))
+            decoded[mode] = out
+            print(f"jpeg {wh[0]}x{wh[1]} {mode}, quality 95: {len(data)} "
+                  f"bytes; host ms per image, median of 3: encode "
+                  f"{statistics.median(enc)!r}, decode "
+                  f"{statistics.median(dec)!r}; round trip PSNR {psnr!r} "
+                  f"dB (bound {JPEG_PSNR_DB}), max abs "
+                  f"{np.abs(err).max()!r} [{card}]")
+            if out.shape != img.shape or not psnr >= JPEG_PSNR_DB:
+                raise AssertionError(f"jpeg {wh} {mode}: PSNR {psnr}")
+        base = decoded["baseline 4:2:0"]
+        for mode in ("progressive", "restart interval 16"):
+            if not np.array_equal(decoded[mode], base):
+                raise AssertionError(f"jpeg {wh} {mode} decodes unlike the "
+                                     "baseline file")
+
+
+def bmvs_train(work: str, dtu_ckpt: str, card) -> tuple[str, dict]:
+    """Phase 38: a synthetic BlendedMVS tree; K1 and K2 against their
+    plain versions at its train shapes (768x576x3, B=2); one epoch of
+    ``train_torch.main --dataset_name blendedmvs``; the warm start from
+    phase 34's DTU checkpoint. Returns (the reader's root, the epoch's
+    launches)."""
+    import train_torch
+    from casmvsnet_pl_tpu_torch.data import write_blendedmvs_tree
+    from casmvsnet_pl_tpu_torch.kernels import cost_volume_bwd_cuda
+    from casmvsnet_pl_tpu_torch.kernels import cost_volume_cuda
+    from casmvsnet_pl_tpu_torch.ops import plain_cost_volume_bwd
+    from casmvsnet_pl_tpu_torch.probes import k1
+    from casmvsnet_pl_tpu_torch.utils import load_checkpoint
+
+    t0 = time.perf_counter()
+    root = write_blendedmvs_tree(os.path.join(work, "bmvs"),
+                                 n_cams=BMVS_CAMS, img_wh=BMVS_NATIVE_WH)
+    print(f"blendedmvs tree: 1 train and 1 val scene, {BMVS_CAMS} cameras "
+          f"each, JPEGs at {BMVS_NATIVE_WH[0]}x{BMVS_NATIVE_WH[1]}, written "
+          f"in "
+          f"{time.perf_counter() - t0!r} s")
+    k1.check({cost_volume_cuda.name: cost_volume_cuda}, DEVICE,
+             cases=("bmvs_step",))
+    check_bwd(cost_volume_bwd_cuda, plain_cost_volume_bwd,
+              level_inputs(2, BMVS_WH), BMVS_WH)
+
+    flags = ("--dataset_name", "blendedmvs", "--depth_interval",
+             str(BMVS_DEPTHS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state = train_torch.main(cli_args(
+        root, *flags, "--num_epochs", "1", "--exp_name", "bmvs"),
+        time_steps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts(counts, BMVS_EPOCH, "train_torch.py blendedmvs epoch")
+    times = trainer.step_times
+    losses = [t["loss"] for t in times]
+    if state.step != BMVS_STEPS or len(times) != BMVS_STEPS:
+        raise AssertionError(f"blendedmvs epoch: {state.step} steps")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite blendedmvs loss {losses}")
+    if not statistics.mean(losses[-2:]) < statistics.mean(losses[:2]):
+        raise AssertionError(f"blendedmvs loss did not fall: {losses}")
+    steady = times[1:]
+    ms = statistics.median(t["step_s"] for t in steady) * 1e3
+    wait = sum(t["wait_s"] for t in steady) / sum(t["step_s"]
+                                                  for t in steady)
+    W, H = BMVS_WH
+    print(f"train_torch.py --dataset_name blendedmvs --depth_interval "
+          f"{BMVS_DEPTHS} bf16 {W}x{H}x3 batch {CLI_BATCH}, one epoch "
+          f"({BMVS_STEPS} steps, {BMVS_VAL_BATCHES} val batches) in {wall!r} "
+          f"s: losses {losses!r}; launches {counts}")
+    print(f"timing blendedmvs train step (wall, CUDA sync a step, loader "
+          f"included, median of steps 2-{BMVS_STEPS}): {ms!r} ms/step, "
+          f"{CLI_BATCH * 1000.0 / ms!r} samples/s, loader wait "
+          f"{100 * wait!r} % of the step; peak memory {peak!r} GiB [{card}]")
+    del trainer, state
+
+    ckpt = load_checkpoint(dtu_ckpt)
+    _, state = train_torch.main(cli_args(
+        root, *flags, "--num_epochs", "0", "--exp_name", "bmvs_warm",
+        "--ckpt_path", dtu_ckpt))
+    params = {k: v.detach().cpu() for k, v in
+              state.model.named_parameters()}
+    loaded = [k for k, v in ckpt["params"].items()
+              if k in params and torch.equal(params[k], v)]
+    print(f"train_torch.py --dataset_name blendedmvs --ckpt_path "
+          f"<phase 34's DTU last.ckpt>: {len(loaded)} of {len(params)} "
+          f"parameters equal to the checkpoint's")
+    if sorted(loaded) != sorted(params):
+        raise AssertionError("blendedmvs warm start missed parameters")
+    return root, counts
+
+
+def tanks_eval(work: str, card) -> tuple[dict, float]:
+    """Phase 39: ``eval_torch`` on a synthetic Tanks and Temples tree
+    (intermediate split; Family's JPEGs at 1920x1080) at 1152x864x5 in
+    bf16: 3 K1 launches a view, depths finite and inside the swept range;
+    ms per view; one f32 view with K1 against the plain cost volume; one
+    bf16 forward at 1920x1056x5; fusion of the ground-truth depths onto
+    the plane. Returns (launches, the 1920x1056 forward's peak GiB)."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import (TanksDataset, read_pfm,
+                                             save_pfm, write_tanks_tree)
+    from casmvsnet_pl_tpu_torch.data.cams import read_cam_file
+    from casmvsnet_pl_tpu_torch.data.tanks import INTERMEDIATE_SIZES
+    from casmvsnet_pl_tpu_torch.fusion import read_ply
+    from casmvsnet_pl_tpu_torch.ops import plain_cost_volume
+
+    tree = os.path.join(work, "tanks")
+    t0 = time.perf_counter()
+    write_tanks_tree(tree, n_cams=TANKS_CAMS, z0=TANKS_Z0,
+                     slope_x=TANKS_SLOPE, image_scale=TANKS_IMAGE_SCALE)
+    print(f"tanks tree: intermediate split, {TANKS_CAMS} cameras a scan, "
+          f"{TANKS_SCAN}'s JPEGs at {TANKS_IMAGE_SCALE} x 1920x1080, "
+          f"written in "
+          f"{time.perf_counter() - t0!r} s")
+
+    def args_of(*flags):
+        return eval_torch.get_opts([
+            "--dataset_name", "tanks", "--root_dir", tree, "--split",
+            "intermediate", "--scan", TANKS_SCAN, "--n_views",
+            str(TANKS_CAMS), "--img_wh", str(TANKS_WH[0]),
+            str(TANKS_WH[1]), *flags])
+
+    args = args_of()
+    ds = TanksDataset(tree, "intermediate", n_views=TANKS_CAMS,
+                      img_wh=TANKS_WH)
+    predict = eval_torch.build_predictor(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    records = eval_torch.run_inference(args, ds, [TANKS_SCAN], predict)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts(counts, scaled(DEFAULT_FWD, TANKS_CAMS), "tanks inference")
+    sample = ds[0]
+    lo, hi = sweep_range(args, float(sample["init_depth_min"]),
+                         float(sample["depth_interval"]))
+    W, H = TANKS_WH
+    for vid in range(TANKS_CAMS):
+        depth = read_pfm(f"results/tanks/depth/{TANKS_SCAN}/"
+                         f"depth_{vid:04d}.pfm")[0]
+        if depth.shape != (H, W) or not (
+                np.isfinite(depth).all() and lo <= depth.min()
+                and depth.max() <= hi):
+            raise AssertionError(f"tanks view {vid}: depth {depth.shape} "
+                                 f"outside [{lo}, {hi}]")
+    fwd = [r["forward_ms"] for r in records]
+    view = [r["view_ms"] for r in records]
+    print(f"tanks inference bf16 {W}x{H}x{TANKS_CAMS}, {len(records)} views "
+          f"through eval_torch.run_inference: forward "
+          f"{statistics.median(fwd[1:])!r} ms per view (CUDA events, median "
+          f"of views 2-{len(records)}; first {fwd[0]!r}), with the JPEG "
+          f"reading, transfer and PFM writing {statistics.median(view[1:])!r}"
+          f" ms; peak memory {peak!r} GiB; depths in [{lo}, {hi}]; launches "
+          f"{counts} [{card}]")
+
+    inputs = (torch.from_numpy(sample["imgs"][None]).to(DEVICE),
+              torch.from_numpy(sample["proj_mats"][None]).to(DEVICE),
+              float(sample["init_depth_min"]),
+              float(sample["depth_interval"]))
+    p32 = eval_torch.build_predictor(args_of("--precision", "f32"))
+    with torch.no_grad():
+        for l in range(3):
+            getattr(p32.model, f"cost_reg_{l}").prob.weight *= 30.0
+    d_k, _ = counted(lambda: p32(*inputs), DEFAULT_FWD, "tanks f32 view")
+    d_p, _ = counted(lambda: p32(*inputs, cost_volume=plain_cost_volume),
+                     {}, "tanks f32 plain view")
+    dd = (d_k - d_p).abs().max().item()
+    print(f"tanks f32 view {W}x{H}x{TANKS_CAMS}, kernel vs plain cost "
+          f"volume: max|d depth_0|={dd!r} units (bound {TANKS_DEPTH_TOL!r})"
+          f", depth_0 range [{d_k.min().item()!r}, {d_k.max().item()!r}]")
+    if not dd < TANKS_DEPTH_TOL:
+        raise AssertionError(f"tanks f32 depth_0 kernel vs plain {dd}")
+    del p32, d_k, d_p
+    torch.cuda.empty_cache()
+
+    big = TanksDataset(tree, "intermediate", n_views=TANKS_CAMS,
+                       img_wh=TANKS_MEMORY_WH)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    depth, _ = predict(torch.from_numpy(big["imgs"][None]).to(DEVICE),
+                       torch.from_numpy(big["proj_mats"][None]).to(DEVICE),
+                       float(big["init_depth_min"]),
+                       float(big["depth_interval"]))
+    torch.cuda.synchronize()
+    big_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"tanks bf16 forward {TANKS_MEMORY_WH[0]}x{TANKS_MEMORY_WH[1]}x"
+          f"{TANKS_CAMS}: peak memory {big_peak!r} GiB; depth_0 "
+          f"{tuple(depth.shape)} [{card}]")
+    del predict, depth
+    torch.cuda.empty_cache()
+
+    # the ground-truth depths at 1152x864: the plane z = z0 + slope * X
+    # along each column's ray, from the cameras' files (identity rotation,
+    # the reader's intrinsics: the native ones scaled by img_wh / native)
+    sx = W / INTERMEDIATE_SIZES[TANKS_SCAN][0]
+    gt_dir = os.path.join(work, "tanks_gt")
+    depth_dir = os.path.join(gt_dir, f"results/tanks/depth/{TANKS_SCAN}")
+    os.makedirs(depth_dir)
+    for vid in range(TANKS_CAMS):
+        K, E, _ = read_cam_file(os.path.join(
+            tree, "intermediate", TANKS_SCAN, f"cams/{vid:08d}_cam.txt"))
+        dir_x = (np.arange(W) - K[0, 2] * sx) / (K[0, 0] * sx)
+        z = (TANKS_Z0 - TANKS_SLOPE * E[0, 3]) / (1 - TANKS_SLOPE * dir_x)
+        save_pfm(os.path.join(depth_dir, f"depth_{vid:04d}.pfm"),
+                 np.repeat(z.astype(np.float32)[None], H, 0))
+        save_pfm(os.path.join(depth_dir, f"proba_{vid:04d}.pfm"),
+                 np.ones((H // 4, W // 4), np.float32))
+    cwd = os.getcwd()
+    os.chdir(gt_dir)
+    try:
+        t0 = time.perf_counter()
+        eval_torch.run_fusion(args_of("--conf", "0.5",
+                                      "--min_geo_consistent", "2"),
+                              ds, [TANKS_SCAN])
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+        xyz, rgb = read_ply(f"results/tanks/points/{TANKS_SCAN}.ply")
+    finally:
+        os.chdir(cwd)
+    off = np.abs(xyz[:, 2] - (TANKS_Z0 + TANKS_SLOPE * xyz[:, 0]))
+    print(f"tanks fusion of ground-truth depths: {len(xyz)} points, "
+          f"distance to the plane mean {off.mean()!r} max {off.max()!r} "
+          f"units (bound {TANKS_PLANE_TOL} on the max); run_fusion "
+          f"{1e3 * fuse_s / TANKS_CAMS!r} ms per reference view (JPEG and "
+          f"PFM reading included) [{card}]")
+    if len(xyz) == 0 or not off.max() < TANKS_PLANE_TOL:
+        raise AssertionError("tanks fused ground-truth cloud off the plane")
+    return counts, big_peak
+
+
+def bmvs_eval(root: str, work: str, card) -> dict:
+    """Phase 40: ``eval_torch.main --dataset_name blendedmvs --split val
+    --save_visual`` at 768x576 on phase 38's tree: 3 K1 launches a view,
+    the PFMs, the PLY and the two visual JPEGs a view; then the fusion of
+    the scene's ground-truth depths onto its plane. Returns the
+    launches."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import (BlendedMVSDataset, read_pfm,
+                                             save_pfm)
+    from casmvsnet_pl_tpu_torch.data.base import load_image
+    from casmvsnet_pl_tpu_torch.fusion import read_ply
+
+    W, H = BMVS_WH
+    scan = "synth_val"
+    reset_counts()
+    t0 = time.perf_counter()
+    eval_torch.main(["--dataset_name", "blendedmvs", "--root_dir", root,
+                     "--split", "val", "--img_wh", str(W), str(H),
+                     "--save_visual", "--conf", "0.05",
+                     "--min_geo_consistent", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(counts, scaled(DEFAULT_FWD, BMVS_CAMS),
+                  "blendedmvs inference")
+    out = f"results/blendedmvs/depth/{scan}"
+    for vid in range(BMVS_CAMS):
+        depth = read_pfm(f"{out}/depth_{vid:04d}.pfm")[0]
+        proba = read_pfm(f"{out}/proba_{vid:04d}.pfm")[0]
+        vis = load_image(f"{out}/depth_visual_{vid:04d}.jpg")
+        pvis = load_image(f"{out}/proba_visual_{vid:04d}.jpg")
+        if (depth.shape, proba.shape, vis.shape, pvis.shape) != (
+                (H, W), (H // 4, W // 4), (H, W, 3), (H // 4, W // 4, 3)):
+            raise AssertionError(f"blendedmvs view {vid}: outputs "
+                                 f"{depth.shape} {proba.shape} {vis.shape} "
+                                 f"{pvis.shape}")
+        if not (np.isfinite(depth).all() and np.isfinite(proba).all()):
+            raise AssertionError(f"blendedmvs view {vid}: non-finite maps")
+    xyz, rgb = read_ply(f"results/blendedmvs/points/{scan}.ply")
+    if not np.isfinite(xyz).all():
+        raise AssertionError("blendedmvs PLY holds non-finite points")
+    print(f"eval_torch.py --dataset_name blendedmvs --split val --save_visual"
+          f" {W}x{H}x{BMVS_EVAL_VIEWS}: {BMVS_CAMS} views and their fusion "
+          f"({len(xyz)} points at --conf 0.05 from random weights) in "
+          f"{wall!r} s; PFMs and visual JPEGs decoded; launches {counts} "
+          f"[{card}]")
+
+    # the reader's ground-truth depths and confidence 1 through the same
+    # fusion path (its images and projections), at the native size, where
+    # the depths are exact
+    GW, GH = BMVS_NATIVE_WH
+    ds = BlendedMVSDataset(root, "val", n_views=BMVS_EVAL_VIEWS,
+                           depth_interval=BMVS_DEPTHS, img_wh=(GW, GH))
+    gt_dir = os.path.join(work, "bmvs_gt")
+    depth_dir = os.path.join(gt_dir, f"results/blendedmvs/depth/{scan}")
+    os.makedirs(depth_dir)
+    for vid in range(BMVS_CAMS):
+        save_pfm(os.path.join(depth_dir, f"depth_{vid:04d}.pfm"),
+                 ds.read_depth_and_mask(scan, vid, 0.0)[0]["level_0"])
+        save_pfm(os.path.join(depth_dir, f"proba_{vid:04d}.pfm"),
+                 np.ones((GH // 4, GW // 4), np.float32))
+    cwd = os.getcwd()
+    os.chdir(gt_dir)
+    try:
+        t0 = time.perf_counter()
+        eval_torch.run_fusion(eval_torch.get_opts([
+            "--dataset_name", "blendedmvs", "--root_dir", root, "--split",
+            "val", "--img_wh", str(GW), str(GH), "--conf", "0.5",
+            "--min_geo_consistent", "2"]), ds, [scan])
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+        xyz, rgb = read_ply(f"results/blendedmvs/points/{scan}.ply")
+    finally:
+        os.chdir(cwd)
+    off = np.abs(xyz[:, 2] - (BMVS_PLANE_Z0 + BMVS_PLANE_SLOPE * xyz[:, 0]))
+    if len(xyz) == 0:
+        raise AssertionError("blendedmvs fused ground-truth cloud is empty")
+    q = float(np.quantile(off, 0.999))
+    print(f"blendedmvs fusion of ground-truth depths: {len(xyz)} points, "
+          f"distance to the plane mean {off.mean()!r}, 99.9th percentile "
+          f"{q!r} (bound {BMVS_PLANE_TOL}), max {off.max()!r} units (bound "
+          f"{BMVS_PLANE_MAX}); run_fusion "
+          f"{1e3 * fuse_s / BMVS_CAMS!r} ms per reference view (JPEG and "
+          f"PFM reading included) [{card}]")
+    if not (q < BMVS_PLANE_TOL and off.max() < BMVS_PLANE_MAX):
+        raise AssertionError("blendedmvs fused ground-truth cloud off the "
+                             "plane")
+    return counts
+
+
+def jpeg_path(card, work: str) -> dict:
+    """Phases 37-40 in ``work``, which holds phase 34's DTU checkpoint;
+    returns the launches of the three paths."""
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    jpeg_codec(card)
+    os.chdir(work)
+    try:
+        root, train = bmvs_train(work, os.path.join(work, "dtu_last.ckpt"),
+                                 card)
+        torch.cuda.empty_cache()
+        tanks, _ = tanks_eval(work, card)
+        torch.cuda.empty_cache()
+        evals = bmvs_eval(root, work, card)
+    finally:
+        os.chdir(cwd)
+    print(f"JPEG datasets path (phases 37-40): {time.perf_counter() - t0!r} "
+          f"s wall")
+    return {"bmvs_train": train, "tanks_eval": tanks, "bmvs_eval": evals}
 
 
 def kernel_line(name, source, replaces, launches_by_path, main_path,
@@ -1740,7 +2193,9 @@ def main() -> int:
     probe_results, paths["probes"] = probes_path(card)
     host_costs(card)
     paths.update(eval_path(card))
-    paths.update(cli_path(card, train_entry_ms))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as work:
+        paths.update(cli_path(card, train_entry_ms, keep=work))
+        paths.update(jpeg_path(card, work))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -1753,7 +2208,8 @@ def main() -> int:
         return {p: paths[p].get(name, 0) for p in keys}
 
     default_paths = ("inference", "train", "quad_inference", "quad_train",
-                     "eval", "eval_g8", "train_cli")
+                     "eval", "eval_g8", "train_cli", "bmvs_train",
+                     "tanks_eval", "bmvs_eval")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

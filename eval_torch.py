@@ -1,26 +1,33 @@
 """Inference to PFM depth maps and their fusion into a point cloud, with
 the PyTorch port on one NVIDIA GPU.
 
-The port's counterpart of ``eval.py``, with the same flags and outputs:
+The port's counterpart of ``eval.py``, with the same flags and outputs,
+for DTU, Tanks and Temples and BlendedMVS (``--dataset_name``):
 
     python eval_torch.py --root_dir <DTU root> --split test --scan scan1
+    python eval_torch.py --dataset_name tanks --root_dir <TNT root> \
+        --split intermediate --scan Family
 
 Step 1 (:func:`run_inference`) runs the cascade forward for each reference
 view and writes ``depth_{vid:04d}.pfm`` (full resolution) and
 ``proba_{vid:04d}.pfm`` (quarter resolution) under
-``results/<dataset>/depth/<scan>``; step 2 (:func:`run_fusion`) fuses them
-into ``results/<dataset>/points/<scan>.ply`` through confidence and
+``results/<dataset>/depth/<scan>`` (with ``--save_visual`` also
+``depth_visual_*.jpg``, JET-coloured, and ``proba_visual_*.jpg``, the
+confidence mask, as ``cv2.imwrite`` writes them); step 2
+(:func:`run_fusion`) fuses them into
+``results/<dataset>/points/<scan>.ply`` through confidence and
 geometric-consistency filtering with iterative refinement. Both run on the
 card; ``--cpu`` runs them on the CPU. Without a card and without
 ``--cpu`` the script exits with an error.
 
-Not taken yet: ``--dataset_name tanks|blendedmvs`` (JPEG images, ROADMAP
-Queue 1 item 16) and ``--save_visual`` (item 13) raise
-``NotImplementedError``; ``--fusion_backend`` does not exist, since the
-port has one fusion backend.
+Fusion reads each view's colours as ``eval.py`` does with
+``cv2.imread``: a JPEG turned by its EXIF orientation (the model's inputs,
+read as PIL reads them, are not turned). ``--fusion_backend`` does not
+exist, since the port has one fusion backend.
 """
 from __future__ import annotations
 
+import functools
 import os
 import sys
 import time
@@ -29,13 +36,14 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from casmvsnet_pl_tpu_torch.data import DTUDataset, read_pfm, save_pfm
-from casmvsnet_pl_tpu_torch.data.base import resize_linear
-from casmvsnet_pl_tpu_torch.data.png import read_png, to_rgb
+from casmvsnet_pl_tpu_torch.data import dataset_dict, read_pfm, save_pfm
+from casmvsnet_pl_tpu_torch.data.base import load_image_cv2, resize_linear
+from casmvsnet_pl_tpu_torch.data.jpeg import write_jpeg
 from casmvsnet_pl_tpu_torch.entry import init_weights
 from casmvsnet_pl_tpu_torch.fusion import fuse_and_write
 from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
 from casmvsnet_pl_tpu_torch.utils import extract_model_params, load_checkpoint
+from casmvsnet_pl_tpu_torch.utils.visualization import COLORMAPS
 
 
 def get_opts(argv=None):
@@ -83,15 +91,7 @@ def get_opts(argv=None):
     parser.add_argument('--skip_inference', default=False, action='store_true',
                         help='reuse existing depth predictions (fusion only)')
     parser.add_argument('--skip_fusion', default=False, action='store_true')
-    args = parser.parse_args(argv)
-    if args.dataset_name != 'dtu':
-        raise NotImplementedError(
-            f"--dataset_name {args.dataset_name} is not ported yet: its "
-            "images are JPEGs (ROADMAP Queue 1 item 16)")
-    if args.save_visual:
-        raise NotImplementedError("--save_visual is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
-    return args
+    return parser.parse_args(argv)
 
 
 def resolve_device(args) -> torch.device:
@@ -176,6 +176,9 @@ def run_inference(args, dataset, scans, predict: Predictor | None = None
                       else (time.perf_counter() - t1) * 1e3)
         save_pfm(os.path.join(depth_dir, f'{scan}/depth_{vid:04d}.pfm'), depth)
         save_pfm(os.path.join(depth_dir, f'{scan}/proba_{vid:04d}.pfm'), proba)
+        if args.save_visual:
+            save_visuals(os.path.join(depth_dir, scan), vid, depth, proba,
+                         args.conf)
         view_ms = (time.perf_counter() - t0) * 1e3
         records.append({"scan": scan, "vid": vid, "forward_ms": forward_ms,
                         "view_ms": view_ms})
@@ -184,11 +187,27 @@ def run_inference(args, dataset, scans, predict: Predictor | None = None
     return records
 
 
+def save_visuals(out_dir: str, vid: int, depth: np.ndarray,
+                 proba: np.ndarray, conf: float) -> None:
+    """``depth_visual_{vid:04d}.jpg`` (depth normalized over its positive
+    range, JET-coloured) and ``proba_visual_{vid:04d}.jpg`` (255 where the
+    confidence passes ``conf``), the files ``eval.py`` writes with
+    ``cv2.applyColorMap`` and ``cv2.imwrite``."""
+    mi = np.min(depth[depth > 0]) if (depth > 0).any() else 0
+    ma = np.max(depth)
+    vis = (255 * (depth - mi) / (ma - mi + 1e-8)).astype(np.uint8)
+    write_jpeg(os.path.join(out_dir, f'depth_visual_{vid:04d}.jpg'),
+               COLORMAPS["jet"][vis])
+    write_jpeg(os.path.join(out_dir, f'proba_visual_{vid:04d}.jpg'),
+               (255 * (proba > conf)).astype(np.uint8))
+
+
 def read_image(path: str, img_wh) -> np.ndarray:
-    """A PNG as RGB uint8 at ``img_wh``, resized with OpenCV's
-    ``INTER_LINEAR`` semantics, as ``eval.py``'s fusion reads its colours
+    """An image as RGB uint8 at ``img_wh``, read as ``eval.py``'s fusion
+    reads its colours: ``cv2.imread`` (a JPEG turned by its EXIF
+    orientation), then a resize with OpenCV's ``INTER_LINEAR`` semantics
     (the model's inputs use PIL's filter, ``data/base.py::load_image``)."""
-    img = torch.from_numpy(to_rgb(read_png(path))).float()
+    img = torch.from_numpy(load_image_cv2(path)).float()
     img = resize_linear(img, tuple(img_wh))
     return img.round().clamp(0, 255).to(torch.uint8).numpy()
 
@@ -206,13 +225,11 @@ def run_fusion(args, dataset, scans) -> None:
         metas = [(m[2], m[3]) for m in dataset.metas if m[0] == scan]
         n = fuse_and_write(
             f'{point_dir}/{scan}.ply', metas,
-            lambda vid: read_image(os.path.join(
-                args.root_dir,
-                f'Rectified/{scan}/rect_{vid + 1:03d}_3_r5000.png'),
-                args.img_wh),
+            lambda vid: read_image(dataset.image_path(scan, vid),
+                                   args.img_wh),
             lambda vid: read_pfm(f'{depth_dir}/{scan}/depth_{vid:04d}.pfm')[0],
             lambda vid: read_pfm(f'{depth_dir}/{scan}/proba_{vid:04d}.pfm')[0],
-            lambda vid: dataset.proj_mats[vid][0][0], tuple(args.img_wh),
+            functools.partial(dataset.proj_mat, scan), tuple(args.img_wh),
             conf=args.conf, min_geo_consistent=args.min_geo_consistent,
             max_ref_views=args.max_ref_views, skip=args.skip, progress=True,
             cache_bytes=(args.fusion_cache_gb * 1e9
@@ -225,9 +242,9 @@ def run_fusion(args, dataset, scans) -> None:
 def main(argv=None) -> int:
     args = get_opts(argv)
     resolve_device(args)
-    dataset = DTUDataset(args.root_dir, args.split, n_views=args.n_views,
-                         depth_interval=args.depth_interval,
-                         img_wh=tuple(args.img_wh))
+    dataset = dataset_dict[args.dataset_name](
+        args.root_dir, args.split, n_views=args.n_views,
+        depth_interval=args.depth_interval, img_wh=tuple(args.img_wh))
     scans = [args.scan] if args.scan else dataset.scans
     if not args.skip_inference:
         run_inference(args, dataset, scans)

@@ -191,14 +191,6 @@ def test_warm_start_ignores_prefixes(tree, tmp_path, monkeypatch, capsys):
         assert torch.equal(buffers[k], v), k
 
 
-def test_blendedmvs_is_not_ported(tree, tmp_path, monkeypatch):
-    root, _ = tree
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train_torch.main(_opts(root, "--dataset_name", "blendedmvs"))
-    assert not os.path.exists("ckpts")
-
-
 def test_fails_without_a_card(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     script = os.path.join(REPO, "train_torch.py")

@@ -29,9 +29,10 @@ def test_package_imports_no_jax_pil_or_cv2():
         "for m in mods: __import__(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r})\n"
-        "assert len(mods) >= 55, mods\n"
+        "assert len(mods) >= 58, mods\n"
         "for m in ('opt', 'parallel.dist', 'parallel.sync_bn', "
-        "'utils.tensorboard', 'utils.visualization'):\n"
+        "'utils.tensorboard', 'utils.visualization', 'data.jpeg', "
+        "'data.blendedmvs', 'data.tanks'):\n"
         "    assert 'casmvsnet_pl_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -204,7 +205,7 @@ def test_window_sampling_raises():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     fn, args = entry("cpu", img_wh=(64, 32), sampling="window")
-    with pytest.raises(NotImplementedError, match="window"):
+    with pytest.raises(NotImplementedError, match="window.*item 15"):
         fn(*args)
 
 
@@ -323,17 +324,6 @@ def test_eval_torch_fails_without_a_card(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not os.path.exists(tmp_path / "results")
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--dataset_name", "tanks"], "item 16"),
-    (["--dataset_name", "blendedmvs"], "item 16"),
-    (["--save_visual"], "item 13")])
-def test_eval_torch_refuses_what_is_not_ported(flags, item):
-    import eval_torch
-
-    with pytest.raises(NotImplementedError, match=item):
-        eval_torch.get_opts(flags)
 
 
 def test_fusion_defaults_to_the_card():

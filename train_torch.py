@@ -10,8 +10,11 @@ events (scalars and [image|GT|pred|prob] panels) under
         --optimizer adam --lr 1e-3 --num_epochs 16
 
 It trains ``CascadeMVSNet`` (``--n_depths``, ``--interval_ratios``,
-``--num_groups``, ``--sampling``) at ``--precision`` on the DTU reader's
-train split and validates on its val split (the last global batch padded
+``--num_groups``, ``--sampling``) at ``--precision`` on the train split of
+``--dataset_name``'s reader (DTU, or BlendedMVS at its 768x576, where
+``--depth_interval`` is the number of depth hypotheses in all; a warm
+start from a DTU checkpoint is ``--ckpt_path``) and validates on its val
+split (the last global batch padded
 with mask-zeroed rows, so every sample counts). The card is the default;
 ``--cpu`` trains on the CPU; without a card and without ``--cpu`` it
 exits 1.
@@ -33,8 +36,6 @@ Flags without a counterpart in the port:
     route (``--sampling quad``) does keep its gathered rows (B, V-1, D,
     h*w, 4C) and tap weights for the backward, and ``--remat`` does not
     change that.
-  - ``--dataset_name blendedmvs`` raises ``NotImplementedError``: its
-    images are JPEGs (ROADMAP Queue 1 item 16).
   - ``--num_workers`` is the loader's thread count (threads, not
     processes).
 """
@@ -45,7 +46,7 @@ import sys
 
 import torch
 
-from casmvsnet_pl_tpu_torch.data import DataLoader, DTUDataset
+from casmvsnet_pl_tpu_torch.data import DataLoader, dataset_dict
 from casmvsnet_pl_tpu_torch.engine import MVSTrainer
 from casmvsnet_pl_tpu_torch.entry import init_weights
 from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
@@ -67,11 +68,7 @@ def resolve_device(hparams) -> torch.device:
 
 
 def dataset_class(name: str):
-    if name != "dtu":
-        raise NotImplementedError(
-            f"--dataset_name {name} is not ported yet: its images are JPEGs "
-            "(ROADMAP Queue 1 item 16)")
-    return DTUDataset
+    return dataset_dict[name]
 
 
 def main(hparams, dataset_cls=None, time_steps: bool = False):
