@@ -4,7 +4,7 @@
 // Decoding reproduces libjpeg(-turbo)'s default decompression bit for bit:
 // Huffman decoding of sequential and progressive scans (spectral selection,
 // successive approximation, EOB runs), restart intervals, the ISLOW integer
-// IDCT (jidctint.c) with its range-limit table, "fancy" triangular chroma
+// IDCT (jidctint.c) with the SIMD IDCT's saturation, "fancy" triangular chroma
 // upsampling (jdsample.c) and the 16-bit fixed-point YCbCr->RGB tables
 // (jdcolor.c). Encoding reproduces libjpeg-turbo's compressor: RGB->YCbCr
 // (jccolor.c), h2v2 downsampling (jcsample.c), the ISLOW forward DCT
@@ -387,19 +387,17 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t len, int64_t pos,
 #define FIX_3_072711026 ((int64_t)25172)
 #define DESCALE(x, n) (((x) + ((int64_t)1 << ((n) - 1))) >> (n))
 
-// jdmaster.c's range-limit table, seen from the IDCT: index (value & 1023)
-// -> sample, i.e. value + 128 clamped, wrapping beyond +-512.
-static void idct_range_table(uint8_t* t) {
-  for (int i = 0; i < 1024; ++i) {
-    if (i < 128) t[i] = (uint8_t)(i + 128);
-    else if (i < 512) t[i] = 255;
-    else if (i < 896) t[i] = 0;
-    else t[i] = (uint8_t)(i - 896);
-  }
+// The IDCT's output stage: a value centred on 0 -> sample, saturated to
+// [0, 255] as the SIMD IDCT of libjpeg-turbo does (its packs saturate;
+// jdmaster.c's range-limit table, which the C IDCT indexes, instead wraps
+// a value beyond +-512 modulo 1024: only crafted coefficients reach it).
+static inline uint8_t idct_sample(int64_t x) {
+  x += 128;
+  return (uint8_t)(x < 0 ? 0 : x > 255 ? 255 : x);
 }
 
 static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
-                       int64_t stride, const uint8_t* limit) {
+                       int64_t stride) {
   int ws[64];
   int64_t tmp0, tmp1, tmp2, tmp3, tmp10, tmp11, tmp12, tmp13;
   int64_t z1, z2, z3, z4, z5;
@@ -409,7 +407,9 @@ static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     int* wp = ws + c;
     if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
         !ip[56]) {
-      int dc = (int)((unsigned)(ip[0] * qp[0]) << PASS1_BITS);
+      // a DC-only column: the SIMD IDCT shifts the dequantized DC in a
+      // 16-bit lane, so it wraps to 16 bits
+      int dc = (int16_t)(uint16_t)((unsigned)(ip[0] * qp[0]) << PASS1_BITS);
       for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
       continue;
     }
@@ -462,7 +462,7 @@ static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     const int* wp = ws + 8 * r;
     uint8_t* op = out + r * stride;
     if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      const uint8_t dc = limit[DESCALE((int64_t)wp[0], PASS1_BITS + 3) & 1023];
+      const uint8_t dc = idct_sample(DESCALE((int64_t)wp[0], PASS1_BITS + 3));
       memset(op, dc, 8);
       continue;
     }
@@ -501,14 +501,14 @@ static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
     const int sh = CONST_BITS + PASS1_BITS + 3;
-    op[0] = limit[DESCALE(tmp10 + tmp3, sh) & 1023];
-    op[7] = limit[DESCALE(tmp10 - tmp3, sh) & 1023];
-    op[1] = limit[DESCALE(tmp11 + tmp2, sh) & 1023];
-    op[6] = limit[DESCALE(tmp11 - tmp2, sh) & 1023];
-    op[2] = limit[DESCALE(tmp12 + tmp1, sh) & 1023];
-    op[5] = limit[DESCALE(tmp12 - tmp1, sh) & 1023];
-    op[3] = limit[DESCALE(tmp13 + tmp0, sh) & 1023];
-    op[4] = limit[DESCALE(tmp13 - tmp0, sh) & 1023];
+    op[0] = idct_sample(DESCALE(tmp10 + tmp3, sh));
+    op[7] = idct_sample(DESCALE(tmp10 - tmp3, sh));
+    op[1] = idct_sample(DESCALE(tmp11 + tmp2, sh));
+    op[6] = idct_sample(DESCALE(tmp11 - tmp2, sh));
+    op[2] = idct_sample(DESCALE(tmp12 + tmp1, sh));
+    op[5] = idct_sample(DESCALE(tmp12 - tmp1, sh));
+    op[3] = idct_sample(DESCALE(tmp13 + tmp0, sh));
+    op[4] = idct_sample(DESCALE(tmp13 - tmp0, sh));
   }
 }
 
@@ -517,13 +517,11 @@ static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 // q: the component's quantisation table in natural order.
 void jpeg_idct_plane(const int16_t* blocks, int64_t stride, int64_t rows,
                      int64_t cols, const uint16_t* q, uint8_t* out) {
-  uint8_t limit[1024];
-  idct_range_table(limit);
   const int64_t ostride = cols * 8;
   for (int64_t by = 0; by < rows; ++by)
     for (int64_t bx = 0; bx < cols; ++bx)
       idct_islow(blocks + (by * stride + bx) * 64, q,
-                 out + by * 8 * ostride + bx * 8, ostride, limit);
+                 out + by * 8 * ostride + bx * 8, ostride);
 }
 
 // Upsample a component plane `in` ((dh, dw) real samples, `in_stride`

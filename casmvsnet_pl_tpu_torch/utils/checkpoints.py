@@ -10,9 +10,30 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Any
 
 import torch
+
+CONVERT_HINT = ("a reference Lightning .ckpt or .pth, or a checkpoint of the "
+                "JAX package, is converted first: "
+                "python convert_ckpt_torch.py SRC DST")
+
+
+def file_format(path: str) -> str:
+    """What the first bytes of ``path`` say it is: "zip" (``torch.save``'s
+    format), "pickle" (a pickle, such as ``torch.save``'s legacy format,
+    which PyTorch before 1.6 wrote), "msgpack" (a map: the JAX package's
+    checkpoints) or "unknown"."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":
+        return "zip"
+    if len(head) == 2 and head[0] == 0x80 and 2 <= head[1] <= 5:
+        return "pickle"
+    if head and (0x81 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return "msgpack"
+    return "unknown"
 
 
 def save_checkpoint(path: str, tree: Any) -> None:
@@ -25,8 +46,24 @@ def save_checkpoint(path: str, tree: Any) -> None:
 
 def load_checkpoint(path: str, map_location="cpu") -> Any:
     """The dict written by :func:`save_checkpoint` (tensors and plain
-    Python values only: ``weights_only`` loading)."""
-    return torch.load(path, map_location=map_location, weights_only=True)
+    Python values only: ``weights_only`` loading). A checkpoint of the JAX
+    package, or a reference Lightning file (whose pickle holds more than
+    weights, or whose weights sit under ``state_dict``), raises a
+    ``ValueError`` that names ``convert_ckpt_torch.py``."""
+    if file_format(path) == "msgpack":
+        raise ValueError(f"{path} is a msgpack file, not a checkpoint of the "
+                         f"port; {CONVERT_HINT}")
+    try:
+        ckpt = torch.load(path, map_location=map_location, weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(f"{path} is not a checkpoint of the port (its pickle "
+                         f"holds objects other than tensors and plain "
+                         f"values); {CONVERT_HINT}") from e
+    if isinstance(ckpt, dict) and "state_dict" in ckpt \
+            and "params" not in ckpt:
+        raise ValueError(f"{path} holds a Lightning state_dict, not the "
+                         f"port's params; {CONVERT_HINT}")
+    return ckpt
 
 
 def extract_model_params(ckpt: dict, prefixes_to_ignore=()) -> dict:

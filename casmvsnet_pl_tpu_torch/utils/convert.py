@@ -15,6 +15,9 @@ Names: ``feature/convA_B/*`` -> ``feature.convA.B.*``;
 ``cost_reg_L/deconvK/kernel`` -> ``cost_reg_L.convK.0.weight`` and
 ``cost_reg_L/deconvK/bn/*`` -> ``cost_reg_L.convK.1.*``; the rest keep their
 names with ``/`` -> ``.``.
+
+:func:`jax_from_state_dict` maps the other way, so that a checkpoint in
+the JAX package's layout can be written without JAX (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -75,3 +78,44 @@ def state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
             if mods[-1] == "bn" and leaf == "scale":
                 sd[".".join(names + ["num_batches_tracked"])] = torch.tensor(0)
     return sd
+
+
+_JAX_LEAF = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
+
+
+def jax_from_state_dict(state_dict) -> tuple[dict, dict]:
+    """The inverse of :func:`state_dict_from_jax`: a state dict of the
+    port (or of the reference) -> the JAX package's ``(params,
+    batch_stats)``, nested dicts of float32 numpy arrays in its names and
+    layouts (as ``casmvsnet_pl_tpu/utils/torch_convert.py::
+    convert_state_dict`` maps them); ``num_batches_tracked`` is dropped."""
+    params: dict = {}
+    stats: dict = {}
+    for key, val in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        w = val.detach().cpu().float().numpy()
+        *mods, leaf = key.split(".")
+        deconv = (len(mods) >= 3 and re.fullmatch(r"cost_reg_\d", mods[0])
+                  and re.fullmatch(r"conv(7|9|11)", mods[1]))
+        if deconv:
+            # cost_reg_L.convK.0.weight / cost_reg_L.convK.1.<bn leaf>
+            path = [mods[0], "de" + mods[1]] + (["bn"] if mods[2] == "1"
+                                                 else [])
+        elif mods[0] == "feature" and re.fullmatch(r"conv\d", mods[1]):
+            path = [mods[0], f"{mods[1]}_{mods[2]}"] + mods[3:]
+        else:
+            path = mods
+        if leaf == "weight" and w.ndim >= 3:
+            name = "kernel"
+            if deconv:
+                w = np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]
+            else:
+                w = np.transpose(w, tuple(range(2, w.ndim)) + (1, 0))
+        else:
+            name = "scale" if leaf == "weight" else _JAX_LEAF[leaf]
+        tree = stats if name in ("mean", "var") else params
+        for m in path:
+            tree = tree.setdefault(m, {})
+        tree[name] = np.ascontiguousarray(w)
+    return params, stats

@@ -15,7 +15,7 @@ Phases, each of which raises on failure (exit code != 0):
      against f32 with the plain cost volume (< 0.05 mm on depth_0), and the
      bf16 main path, counting exactly one K1 launch per level;
   6. time bf16 forwards at B=1 and B=4 with CUDA events;
-  7. (below, after phase 32) print the kernels' JSON line (launches per
+  7. (below, after phase 43) print the kernels' JSON line (launches per
      main path; what each time covers; bounds), then {"ok": true,
      "device": ...} last;
   8. hold the backward kernel (K2) against its plain PyTorch version at the
@@ -201,6 +201,28 @@ directory that holds phase 34's ``last.ckpt``:
      99.9 % of them within 1e-3 units of the plane z = 125 + 0.3 x and
      every one within 1 unit;
 
+Checkpoints from outside the port (``convert_ckpt_torch.py``,
+``utils/torch_convert.py``) and ``demo_torch.py``, on the default model's
+seeded full-width weights with perturbed BatchNorm statistics:
+ 41. a reference Lightning ``.ckpt`` in PyTorch's legacy format (``model.``
+     prefix, a ``loss.`` key, no ``num_batches_tracked``, ``hparams`` a
+     Namespace, a scheduler object in ``lr_schedulers``), converted by
+     ``convert_ckpt_torch.py`` in a subprocess: every weight equal to the
+     original on the card; ``demo_torch.main`` from the converted file at
+     640x512x3 in bf16: its depth and confidence maps against a forward of
+     the original model in this process (expected equal to the bit; bound
+     0.05 mm and 1e-2), exactly 3 K1 launches a forward, ms per view and
+     views/s (CUDA events); one f32 forward of the converted model with K1
+     against the plain cost volume (< 0.05 mm on depth_0);
+ 42. a checkpoint in the JAX package's layout (flax msgpack through
+     ``utils/msgpack.py``: ``params`` and ``batch_stats`` in the JAX names
+     and layouts, an Adam ``opt_state`` and a ``step``), converted: every
+     weight equal to the original, the demo's maps equal to phase 41's;
+ 43. ``eval_torch`` with ``--ckpt_path`` the converted file (a
+     ``strict=True`` load) for one view of phase 29's DTU tree at
+     1152x864x5: 3 K1 launches, the PFMs' shapes, its depth map against
+     the original model's forward (bound 0.05 mm).
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -209,6 +231,9 @@ prefixes it must read and write, not the whole rows).
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import copy
 import json
 import math
 import os
@@ -1154,7 +1179,7 @@ def eval_tree(work: str):
     cameras, rectified PNGs at 1600x1200, light 3 only) written with the
     port's PNG encoder; the decode and decode + PIL-bilinear resize times
     of its images. Returns (tree root, the reader's class)."""
-    from casmvsnet_pl_tpu_torch.data import DTUDataset, write_dtu_tree
+    from casmvsnet_pl_tpu_torch.data import write_dtu_tree
     from casmvsnet_pl_tpu_torch.data.base import load_image
     from casmvsnet_pl_tpu_torch.data.png import read_png
 
@@ -1167,12 +1192,6 @@ def eval_tree(work: str):
     os.makedirs(lists)
     with open(os.path.join(lists, "test.txt"), "w") as f:
         f.write(EVAL_SCAN + "\n")
-
-    class ChipDTU(DTUDataset):
-        NATIVE_WH = EVAL_NATIVE_WH
-        N_CAMS = EVAL_VIEWS
-        LISTS_DIR = lists
-
     pngs = [os.path.join(tree, f"Rectified/{EVAL_SCAN}/"
                                f"rect_{v + 1:03d}_3_r5000.png")
             for v in range(EVAL_VIEWS)]
@@ -1190,7 +1209,19 @@ def eval_tree(work: str):
           f"s; host ms per image, median of {EVAL_VIEWS}: decode "
           f"{statistics.median(decode)!r}, decode + PIL-bilinear resize to "
           f"{EVAL_WH[0]}x{EVAL_WH[1]} {statistics.median(resize)!r}")
-    return tree, ChipDTU
+    return tree, eval_reader(lists)
+
+
+def eval_reader(lists: str):
+    """The DTU reader of phase 29's tree, whose split lists are in
+    ``lists``."""
+    from casmvsnet_pl_tpu_torch.data import DTUDataset
+
+    class ChipDTU(DTUDataset):
+        NATIVE_WH = EVAL_NATIVE_WH
+        N_CAMS = EVAL_VIEWS
+        LISTS_DIR = lists
+    return ChipDTU
 
 
 def eval_args(tree: str, *flags):
@@ -1405,13 +1436,16 @@ def eval_fusion(tree: str, ds, work: str, card) -> None:
           f"{1e3 * pred_s / n!r} ms per reference view [{card}]")
 
 
-def eval_path(card) -> dict:
-    """Phases 28-32 in a temporary directory; returns the launches of the
-    eval path (phase 30) and of its --num_groups 8 view (phase 31)."""
+def eval_path(card, keep: str | None = None) -> dict:
+    """Phases 28-32 in a temporary directory, or in ``keep``, which then
+    holds the tree (``tree``, ``lists``) for phase 43; returns the
+    launches of the eval path (phase 30) and of its --num_groups 8 view
+    (phase 31)."""
     image_libraries()
     cwd = os.getcwd()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work:
+    with (contextlib.nullcontext(keep) if keep else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")) as work:
         try:
             tree, dataset_cls = eval_tree(work)
             os.chdir(work)
@@ -2116,6 +2150,255 @@ def jpeg_path(card, work: str) -> dict:
     return {"bmvs_train": train, "tanks_eval": tanks, "bmvs_eval": evals}
 
 
+# --- checkpoints from outside the port and the demo: phases 41-43 ---------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEMO_TIME_ITERS = 10
+DEMO_CONF_TOL = 1e-2    # tests/test_torch_parity.py's confidence bound
+
+
+def outside_model():
+    """The default model with the port's seeded weights (``entry``'s seed
+    0) and perturbed BatchNorm statistics and scales, on the host, f32."""
+    from casmvsnet_pl_tpu_torch.entry import init_weights
+    from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
+
+    model = CascadeMVSNet()
+    init_weights(model, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.running_mean.shape
+                m.running_mean += torch.from_numpy(
+                    rng.randn(*n).astype(np.float32) * 0.05)
+                m.running_var *= torch.from_numpy(
+                    1 + 0.1 * rng.rand(*n).astype(np.float32))
+                m.weight += torch.from_numpy(
+                    rng.randn(*n).astype(np.float32) * 0.1)
+    return model.eval()
+
+
+def save_reference_ckpt(model, path: str) -> None:
+    """``model`` as the reference's Lightning trainer (PL 0.7.5, PyTorch
+    1.4) saves it: weights under ``model.`` without
+    ``num_batches_tracked``, the loss's buffer, ``hparams`` a Namespace,
+    optimizer state and a scheduler object, in the legacy format."""
+    sd = {"model." + k: v for k, v in model.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    sd["loss.weights"] = torch.ones(3)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, 16)
+    torch.save({"epoch": 15, "global_step": 12345, "state_dict": sd,
+                "hparams": argparse.Namespace(lr=1e-3, num_epochs=16),
+                "optimizer_states": [opt.state_dict()],
+                "lr_schedulers": [{"after_scheduler": sched}]}, path,
+               _use_new_zipfile_serialization=False)
+
+
+def save_jax_layout_ckpt(model, path: str) -> None:
+    """``model`` as the JAX package's ``save_checkpoint`` writes a
+    checkpoint of its trainer (flax msgpack): ``params`` and
+    ``batch_stats`` in its names and layouts, an Adam ``opt_state`` and a
+    ``step``."""
+    from casmvsnet_pl_tpu_torch.utils import jax_from_state_dict, msgpack
+
+    params, stats = jax_from_state_dict(model.state_dict())
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+    opt_state = {"0": {"count": np.asarray(7, np.int32), "mu": zeros(params),
+                       "nu": zeros(params)}, "1": {}}
+    with open(path, "wb") as f:
+        f.write(msgpack.serialize({"params": params, "batch_stats": stats,
+                                   "opt_state": opt_state,
+                                   "step": np.asarray(7)}))
+
+
+def check_converted(path: str, model, what: str, card) -> None:
+    """The converted file's weights equal ``model``'s, on the card."""
+    from casmvsnet_pl_tpu_torch.utils import load_checkpoint
+
+    ckpt = load_checkpoint(path, map_location=DEVICE)
+    got = {**ckpt["params"], **ckpt["batch_stats"]}
+    want = model.state_dict()
+    if sorted(got) != sorted(want) or sorted(ckpt["params"]) != sorted(
+            k for k, _ in model.named_parameters()):
+        raise AssertionError(f"{what}: names differ from the model's")
+    diff = max((got[k].double() - want[k].to(DEVICE).double()).abs().max()
+               .item() for k in want)
+    unequal = [k for k in want if not torch.equal(got[k],
+                                                  want[k].to(DEVICE))]
+    print(f"{what}: {len(ckpt['params'])} parameters and "
+          f"{len(ckpt['batch_stats'])} buffers, {len(unequal)} unequal to "
+          f"the original on the card, max |diff| {diff!r} [{card}]")
+    if unequal:
+        raise AssertionError(f"{what}: {unequal[:4]} differ")
+
+
+def demo_main(ckpt: str, png: str, iters: int, what: str, card) -> tuple:
+    """``demo_torch.main`` from ``ckpt`` at IMG_WH in bf16; returns (its
+    result, its launches)."""
+    import demo_torch
+
+    reset_counts()
+    out = demo_torch.main(["--ckpt_path", ckpt, "--img_wh", str(IMG_WH[0]),
+                           str(IMG_WH[1]), "--precision", "bf16",
+                           "--time_iters", str(iters), "--out_png", png])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, scaled(DEFAULT_FWD, 1 + iters), what)
+    if out["ms_per_view"] is not None:
+        print(f"{what}: {out['ms_per_view']!r} ms per view, "
+              f"{1e3 / out['ms_per_view']!r} views/s (bf16 "
+              f"{IMG_WH[0]}x{IMG_WH[1]}x3, CUDA events over {iters} "
+              f"forwards); launches {counts} [{card}]")
+    return out, counts
+
+
+def compare_maps(out: dict, depth, conf, what: str, card) -> None:
+    dd = float(np.abs(out["depth"] - depth).max())
+    dc = float(np.abs(out["confidence"] - conf).max())
+    print(f"{what}: max|d depth_0| {dd!r} mm (bound {DEPTH_TOL_MM}), "
+          f"max|d confidence_0| {dc!r} (bound {DEMO_CONF_TOL}), depth_0 "
+          f"range [{float(out['depth'].min())!r}, "
+          f"{float(out['depth'].max())!r}] [{card}]")
+    if not (dd < DEPTH_TOL_MM and dc < DEMO_CONF_TOL):
+        raise AssertionError(f"{what}: maps differ by {dd} mm, {dc}")
+
+
+def demo_reference(model, card):
+    """The original model's bf16 forward on the demo's sample in this
+    process: (depth_0, confidence_0) as numpy, and the f32 check of K1
+    against the plain cost volume through the same model (< 0.05 mm)."""
+    import demo_torch
+    from casmvsnet_pl_tpu_torch.ops import plain_cost_volume
+
+    args = demo_torch.get_opts(["--img_wh", str(IMG_WH[0]), str(IMG_WH[1])])
+    inputs = demo_torch.model_inputs(demo_torch.load_sample(args), DEVICE)
+    net = copy.deepcopy(model).to(DEVICE, torch.bfloat16)
+    depth, conf = counted(lambda: demo_torch.predict(net, inputs),
+                          DEFAULT_FWD, "demo forward of the original model")
+    ref = (depth[0].float().cpu().numpy(), conf[0].float().cpu().numpy())
+    net = copy.deepcopy(model).to(DEVICE)
+    outs = []
+    for cv, want in ((None, DEFAULT_FWD), (plain_cost_volume, {})):
+        def run(cv=cv):
+            with torch.inference_mode():
+                return net(*inputs, cost_volume=cv)["depth_0"]
+        outs.append(counted(run, want, f"demo f32 forward, cost volume "
+                                       f"{'K1' if cv is None else 'plain'}"))
+    dd = (outs[0] - outs[1]).abs().max().item()
+    print(f"demo f32 forward of the converted weights, K1 vs plain cost "
+          f"volume at {IMG_WH[0]}x{IMG_WH[1]}x3: max|d depth_0| {dd!r} mm "
+          f"(bound {DEPTH_TOL_MM}) [{card}]")
+    if not dd < DEPTH_TOL_MM:
+        raise AssertionError(f"demo f32 K1 vs plain {dd} mm")
+    return ref
+
+
+def eval_converted(eval_work: str, ckpt: str, model, card) -> dict:
+    """Phase 43: ``eval_torch`` with ``--ckpt_path`` the converted file for
+    the first view of phase 29's tree; returns its launches."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import read_pfm
+
+    tree = os.path.join(eval_work, "tree")
+    args = eval_args(tree, "--ckpt_path", ckpt)
+    predict = eval_torch.build_predictor(args)      # load_state_dict strict
+    ds = eval_reader(os.path.join(eval_work, "lists"))(
+        tree, "test", n_views=EVAL_VIEWS, img_wh=EVAL_WH)
+    ds.metas = ds.metas[:1]
+    work = os.path.join(eval_work, "converted")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        reset_counts()
+        records = eval_torch.run_inference(args, ds, ds.scans, predict)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        scan, vid = ds[0]["scan_vid"]
+        depth = read_pfm(f"results/dtu/depth/{scan}/depth_{vid:04d}.pfm")[0]
+        proba = read_pfm(f"results/dtu/depth/{scan}/proba_{vid:04d}.pfm")[0]
+    finally:
+        os.chdir(cwd)
+    expect_counts(counts, DEFAULT_FWD, "eval_torch --ckpt_path converted")
+    W, H = EVAL_WH
+    if depth.shape != (H, W) or proba.shape != (H // 4, W // 4):
+        raise AssertionError(f"converted eval: PFM shapes {depth.shape}, "
+                             f"{proba.shape}")
+    sample = ds[0]
+    ref = eval_torch.Predictor(copy.deepcopy(model).to(DEVICE,
+                                                       torch.bfloat16),
+                               torch.device(DEVICE))
+    want, _ = ref(torch.from_numpy(sample["imgs"][None]).to(DEVICE),
+                  torch.from_numpy(sample["proj_mats"][None]).to(DEVICE),
+                  float(sample["init_depth_min"]),
+                  float(sample["depth_interval"]))
+    want = np.nan_to_num(want[0].float().cpu().numpy())
+    dd = float(np.abs(depth - want).max())
+    print(f"eval_torch --ckpt_path <converted reference .ckpt> "
+          f"(load_state_dict strict=True), {W}x{H}x{EVAL_VIEWS}, view "
+          f"{vid}: forward {records[0]['forward_ms']!r} ms, with reading "
+          f"and writing {records[0]['view_ms']!r} ms; depth_0 against the "
+          f"original model's forward: max|d| {dd!r} mm (bound "
+          f"{DEPTH_TOL_MM}); launches {counts} [{card}]")
+    if not (np.isfinite(depth).all() and dd < DEPTH_TOL_MM):
+        raise AssertionError(f"converted eval: depth off by {dd} mm")
+    return counts
+
+
+def checkpoint_path(card, eval_work: str) -> dict:
+    """Phases 41-43 (``eval_work`` holds phase 29's tree); returns the
+    launches of the demo's runs and of the converted eval view."""
+    t0 = time.perf_counter()
+    model = outside_model()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as work:
+        raw, conv = (os.path.join(work, n) for n in ("epoch.15.ckpt",
+                                                     "converted.ckpt"))
+        save_reference_ckpt(model, raw)
+        proc = subprocess.run([sys.executable, os.path.join(
+            REPO, "convert_ckpt_torch.py"), raw, conv], capture_output=True,
+            text=True, timeout=300)
+        print(proc.stdout.strip())
+        if proc.returncode:
+            print(proc.stderr, file=sys.stderr)
+            raise AssertionError("convert_ckpt_torch.py failed")
+        check_converted(conv, model, "reference .ckpt (legacy format) "
+                        "converted", card)
+        ref = demo_reference(model, card)
+        demo, demo_counts = demo_main(conv, os.path.join(work, "demo.png"),
+                                      DEMO_TIME_ITERS, "demo_torch.main "
+                                      "--ckpt_path <converted reference "
+                                      ".ckpt>", card)
+        compare_maps(demo, *ref, "demo from the converted reference .ckpt "
+                     "vs the original model", card)
+        t41 = time.perf_counter()
+
+        import convert_ckpt_torch
+        msg, conv_jax = (os.path.join(work, n) for n in ("jax.msgpack",
+                                                         "from_jax.ckpt"))
+        save_jax_layout_ckpt(model, msg)
+        convert_ckpt_torch.main([msg, conv_jax])
+        check_converted(conv_jax, model, "JAX-layout msgpack converted",
+                        card)
+        demo_jax, jax_counts = demo_main(
+            conv_jax, os.path.join(work, "demo_jax.png"), 0,
+            "demo_torch.main --ckpt_path <converted JAX checkpoint>", card)
+        compare_maps(demo_jax, demo["depth"], demo["confidence"],
+                     "demo from the converted JAX checkpoint vs phase 41's",
+                     card)
+        t42 = time.perf_counter()
+        eval_counts = eval_converted(eval_work, conv, model, card)
+    t43 = time.perf_counter()
+    print(f"checkpoint path (phases 41-43): {t43 - t0!r} s wall (41: "
+          f"{t41 - t0!r}, 42: {t42 - t41!r}, 43: {t43 - t42!r}) [{card}]")
+    return {"demo": demo_counts, "demo_jax": jax_counts,
+            "eval_converted": eval_counts}
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -2192,10 +2475,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe_results, paths["probes"] = probes_path(card)
     host_costs(card)
-    paths.update(eval_path(card))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as work:
-        paths.update(cli_path(card, train_entry_ms, keep=work))
-        paths.update(jpeg_path(card, work))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as eval_work:
+        paths.update(eval_path(card, keep=eval_work))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as work:
+            paths.update(cli_path(card, train_entry_ms, keep=work))
+            paths.update(jpeg_path(card, work))
+        torch.cuda.empty_cache()
+        paths.update(checkpoint_path(card, eval_work))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -2209,7 +2495,8 @@ def main() -> int:
 
     default_paths = ("inference", "train", "quad_inference", "quad_train",
                      "eval", "eval_g8", "train_cli", "bmvs_train",
-                     "tanks_eval", "bmvs_eval")
+                     "tanks_eval", "bmvs_eval", "demo", "demo_jax",
+                     "eval_converted")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

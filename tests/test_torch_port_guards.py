@@ -1,6 +1,7 @@
 """Cheap guards on the port: no JAX, PIL, OpenCV or tensorboardX inside it
-or in ``eval_torch.py`` and ``train_torch.py``, no CPU fallback on the card
-path, and its main paths
+or in ``eval_torch.py`` and ``train_torch.py`` (nor msgpack or matplotlib
+in the package, ``convert_ckpt_torch.py`` and ``demo_torch.py``), no CPU
+fallback on the card path, and its main paths
 (inference and a train step, default and quad configurations, the
 packed-quad warp, and the probes' plain versions) run end to end on the
 CPU at a small size without launching a kernel."""
@@ -18,6 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BANNED = ('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'tensorboardX',
           'casmvsnet_pl_tpu')
+# the port reads the JAX package's msgpack and draws the demo itself
+BANNED_TOO = BANNED + ('msgpack', 'matplotlib')
 
 
 def test_package_imports_no_jax_pil_or_cv2():
@@ -28,11 +31,12 @@ def test_package_imports_no_jax_pil_or_cv2():
         "p.__name__ + '.')]\n"
         "for m in mods: __import__(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{BANNED!r})\n"
-        "assert len(mods) >= 58, mods\n"
+        f"{BANNED_TOO!r})\n"
+        "assert len(mods) >= 60, mods\n"
         "for m in ('opt', 'parallel.dist', 'parallel.sync_bn', "
         "'utils.tensorboard', 'utils.visualization', 'data.jpeg', "
-        "'data.blendedmvs', 'data.tanks'):\n"
+        "'data.blendedmvs', 'data.tanks', 'utils.msgpack', "
+        "'utils.torch_convert'):\n"
         "    assert 'casmvsnet_pl_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -48,7 +52,7 @@ def test_chip_smoke_imports_no_jax():
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module]
     assert "casmvsnet_pl_tpu_torch.entry" in names
-    bad = [m for m in names if m.split(".")[0] in BANNED]
+    bad = [m for m in names if m.split(".")[0] in BANNED_TOO]
     assert not bad, bad
 
 
@@ -282,11 +286,11 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
     assert _all_launches() == before
 
 
-def _script_imports_nothing_banned(script):
+def _script_imports_nothing_banned(script, banned=BANNED):
     code = (
         f"import sys, {script}\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{BANNED!r})\n"
+        f"{banned!r})\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -299,6 +303,22 @@ def test_eval_torch_imports_no_jax_pil_or_cv2():
 
 def test_train_torch_imports_no_jax_pil_cv2_or_tensorboardx():
     _script_imports_nothing_banned("train_torch")
+
+
+@pytest.mark.parametrize("script", ["convert_ckpt_torch", "demo_torch"])
+def test_new_scripts_import_no_jax_pil_cv2_msgpack_or_matplotlib(script):
+    _script_imports_nothing_banned(script, BANNED_TOO)
+
+
+def test_demo_torch_fails_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "demo_torch.py"),
+                           "--img_wh", "64", "64"], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not os.listdir(tmp_path)
 
 
 def test_train_torch_defaults_to_the_card():

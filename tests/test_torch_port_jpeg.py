@@ -350,3 +350,42 @@ def test_write_jpeg_files_match_encode(tmp_path):
     assert os.path.getsize(path) > 0
     with open(path, "rb") as f:
         assert f.read() == encode_jpeg(img, subsampling="4:4:4")
+
+
+def _dc_only_jpeg(size: int, diff: int) -> bytes:
+    """A grey baseline JPEG of (size, size) whose every block holds only a
+    DC difference of ``diff`` (no 8-bit encoder writes such a file): a
+    quantisation table of ones and one-symbol Huffman tables (DC category
+    15 and the AC end-of-block, each coded ``0``). The running DC wraps
+    through int16 and the IDCT's output leaves the sample range."""
+    def segment(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    one_code = b"\x01" + b"\x00" * 15
+    head = (b"\xff\xd8" + segment(0xDB, b"\x00" + b"\x01" * 64)
+            + segment(0xC0, struct.pack(">BHHB", 8, size, size, 1)
+                      + b"\x01\x11\x00")
+            + segment(0xC4, b"\x00" + one_code + b"\x0f")
+            + segment(0xC4, b"\x10" + one_code + b"\x00")
+            + segment(0xDA, b"\x01\x01\x00\x00\x3f\x00"))
+    magnitude = diff if diff > 0 else diff - 1    # one's complement bits
+    bits = ("0" + format(magnitude & 0x7FFF, "015b") + "0") * (size // 8) ** 2
+    bits += "1" * (-len(bits) % 8)
+    scan = int(bits, 2).to_bytes(len(bits) // 8, "big")
+    return head + scan.replace(b"\xff", b"\xff\x00") + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("size,diff", [(2048, 32767), (256, -32767),
+                                       (256, 20000)])
+def test_out_of_range_idct_saturates_as_pil_and_opencv(tmp_path, size, diff):
+    """The IDCT's output saturates, and a DC-only column's shifted DC wraps
+    to 16 bits, as in the SIMD IDCT that PIL and OpenCV run: on the
+    2048x2048 file with +32767 half the blocks leave [-384, 639], where
+    libjpeg's C range table would wrap them."""
+    path = str(tmp_path / "x.jpg")
+    with open(path, "wb") as f:
+        f.write(_dc_only_jpeg(size, diff))
+    pil = _pil(path)
+    assert np.array_equal(pil, cv2.imread(path)[..., ::-1])
+    assert np.array_equal(load_image(path), pil)
+    assert np.array_equal(load_image_cv2(path), pil)
