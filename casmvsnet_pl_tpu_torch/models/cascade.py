@@ -8,8 +8,9 @@ levels 1 and 0 recentre a narrower window on the x2-upsampled previous depth
 (gradient-stopped). The per-level lists ``n_depths`` and ``interval_ratios``
 are indexed fine -> coarse. ``sampling`` picks each level's cost-volume
 route (``ops/plane_sweep.py::build_cost_volume``): "auto" (the fused K1/K2
-kernels) or "quad" (packed-quad rows and the cost epilogue kernels), as the
-JAX model's ``sampling`` field.
+kernels), "quad" (packed-quad rows and the cost epilogue kernels) or
+"window" (the window mode's clamped samples where C <= 8, level 0 of the
+default model; K1/K2 elsewhere), as the JAX model's ``sampling`` field.
 
 Precision: the features, cost volumes and convolutions run in the compute
 dtype: the parameters' dtype for inference (``entry.py`` casts the model

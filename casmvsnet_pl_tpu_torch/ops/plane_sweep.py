@@ -22,6 +22,17 @@ reduce the rows in the cost epilogue (``ops/cost_epilogue.py``, TPU kernels
 the group-fit fallback chain exist because the TPU gather engine charges
 per row; the default path here needs none of them.
 
+The window mode (``sampling="window"``) is a bounded approximation, kept
+because the JAX package offers it: where :func:`window_config` allows
+(C <= 8), each group of consecutive depths shares one window, and samples
+whose bilinear support leaves it are clamped to its edge, as JAX's
+``_window_view`` clamps them (:func:`window_sample`,
+:func:`window_cost_volume`). Other levels take the exact path. The port
+gathers the 4 taps of each clamped point as one row of the view's
+``pack_quad`` table (a gather of 16-byte rows, one a tap, took 5x as long
+on the card); the JAX strip table (``pack_strips``) exists only for the
+TPU gather engine.
+
 The warps of the JAX package's public API are here too:
 :func:`warp_src_feature` (the plain sampler, one view) and
 :func:`warp_src_quad_batched` (the packed-quad sampler, ``grid_sample_quad``
@@ -31,6 +42,9 @@ single-sample cost volumes :func:`variance_cost_volume` and
 :func:`groupwise_cost_volume` over :func:`build_cost_volume`.
 """
 from __future__ import annotations
+
+import functools
+import warnings
 
 import torch
 
@@ -286,6 +300,209 @@ def quad_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
     return _QuadCostVolume.apply(feats, proj_mats, depth_values, groups)
 
 
+# ---------------------------------------------------------------------------
+# The window mode (sampling="window"): a bounded approximation
+# ---------------------------------------------------------------------------
+
+def window_config(C: int, D: int, window_h: int = 4):
+    """The window mode's config of a level, or None where it does not apply.
+
+    Counterpart of ``casmvsnet_pl_tpu/ops/plane_sweep.py::window_config``:
+    None for C > 8 or where D does not divide into groups of min(D, 8);
+    else {"strip_w": min(16, 128 // C), "window_h": window_h,
+    "depth_group": min(D, 8)}.
+    """
+    if C > 8:
+        return None
+    group = min(D, 8)
+    if D % group:
+        return None
+    return {"strip_w": min(16, 128 // C), "window_h": window_h,
+            "depth_group": group}
+
+
+def _window_frame(xy: Tensor, height: int, width: int, strip_w: int,
+                  window_h: int, depth_group: int):
+    """Each sample's window origin and clamped offset in it.
+
+    xy (B, D, H, W, 2) float32 -> (x_org, y_org (B, ng, 1, hw); fx, fy,
+    valid (B, ng, depth_group, hw)), as JAX's ``_window_view`` computes
+    them: the group's origin is the floor of its smallest valid coordinate
+    (1e9 where it has none), clipped to [-1, W-1] / [-1, H-1]; the offsets
+    are clipped to the window; validity is tested on the unclamped point.
+    """
+    B, D = xy.shape[:2]
+    shape = (B, D // depth_group, depth_group, height * width)
+    x = xy[..., 0].float().reshape(shape)
+    y = xy[..., 1].float().reshape(shape)
+    valid = (x > -1.0) & (x < float(width)) & (y > -1.0) & (y < float(height))
+    big = torch.full((), 1e9, dtype=torch.float32, device=xy.device)
+    minx = torch.where(valid, x, big).amin(2, keepdim=True)
+    miny = torch.where(valid, y, big).amin(2, keepdim=True)
+    x_org = torch.clamp(torch.floor(minx), -1.0, width - 1.0)
+    y_org = torch.clamp(torch.floor(miny), -1.0, height - 1.0)
+    fx = torch.clamp(x - x_org, 0.0, strip_w - 1.0)
+    fy = torch.clamp(y - y_org, 0.0, window_h - 1.0)
+    return x_org, y_org, fx, fy, valid
+
+
+def _window_quad(xy: Tensor, height: int, width: int, strip_w: int,
+                 window_h: int, depth_group: int):
+    """The quad cell and the 4 tap weights of each sample's clamped point
+    (x_org + fx, y_org + fy): (row index (B, N) int64 into the flattened
+    ``pack_quad`` table of one sample, weights (B, N, 4) float32 in
+    ``pack_quad``'s tap order y0x0, y0x1, y1x0, y1x1), N = D * H * W.
+
+    A weight is JAX's hat product ``max(0, 1 - |fx - k|) * valid *
+    max(0, 1 - |fy - j|)`` at the window column k and row j of the tap,
+    so it is bit-equal to the lane weight JAX computes there; the window's
+    other columns and rows have hat 0. A tap outside the image has weight
+    0, as JAX reads its strips' zero padding there; a cell outside the
+    table clamps onto its edge, where every weight is 0.
+    """
+    x_org, y_org, fx, fy, valid = _window_frame(
+        xy, height, width, strip_w, window_h, depth_group)
+    B = xy.shape[0]
+    vm = valid.float()
+    kx0, ky0 = torch.floor(fx), torch.floor(fy)
+    zero = torch.zeros_like(fx)
+    hats = []
+    for axis, (f, k0, org, n) in enumerate(((fx, kx0, x_org, width),
+                                            (fy, ky0, y_org, height))):
+        taps = []
+        for k in (k0, k0 + 1):
+            hat = torch.clamp(1.0 - torch.abs(f - k), min=0.0)
+            p = org + k
+            taps.append(torch.where((p >= 0) & (p <= n - 1),
+                                    hat * vm if axis == 0 else hat, zero))
+        hats.append(taps)
+    (wx0, wx1), (wy0, wy1) = hats
+    w4 = torch.stack([wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1], dim=-1)
+    x0i = torch.clamp(x_org + kx0 + 1, 0, width).long()
+    y0i = torch.clamp(y_org + ky0 + 1, 0, height).long()
+    idx = y0i * (width + 1) + x0i
+    return idx.reshape(B, -1), w4.reshape(B, -1, 4)
+
+
+class _WindowSample(torch.autograd.Function):
+    """The window sampler of one source view, differentiated by hand.
+
+    Forward: one gathered row of the view's ``pack_quad`` table holds the
+    clamped point's 4 taps; per x-tap, the two y-taps' products ``feature
+    * weight`` (the weight rounded to the features' dtype) are added in
+    that dtype, and the two x-taps' partial sums in float32: JAX's
+    rounding (its rows are summed over the window's rows in the table
+    dtype and over its columns by a float32 ``dot_general``). Backward:
+    each tap's share ``grad * weight`` added into a float32 table gradient
+    with ``index_add_``, taken through ``pack_quad``'s adjoint and cast
+    once, as ``_QuadCostVolume`` scatters; the coordinates get none.
+    """
+
+    @staticmethod
+    def forward(ctx, src, xy, cfg):
+        B, H, W, C = src.shape
+        idx, w4 = _window_quad(xy, H, W, **cfg)
+        base = (torch.arange(B, device=src.device)
+                * ((H + 1) * (W + 1)))[:, None]
+        table = pack_quad(src).reshape(-1, 4 * C)
+        rows = table.index_select(0, (idx + base).reshape(-1))
+        t = rows.reshape(B, -1, 4, C) * w4.to(src.dtype)[..., None]
+        out = (t[:, :, 0] + t[:, :, 2]).float() + (t[:, :, 1]
+                                                   + t[:, :, 3]).float()
+        ctx.save_for_backward(xy)
+        ctx.cfg, ctx.shape, ctx.dtype = cfg, src.shape, src.dtype
+        return out.reshape(B, xy.shape[1], H * W, C)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xy, = ctx.saved_tensors
+        B, H, W, C = ctx.shape
+        idx, w4 = _window_quad(xy, H, W, **ctx.cfg)
+        base = (torch.arange(B, device=grad.device)
+                * ((H + 1) * (W + 1)))[:, None]
+        d_rows = (grad.float().reshape(B, -1, 1, C)
+                  * w4.to(ctx.dtype).float()[..., None])
+        table = torch.zeros((B * (H + 1) * (W + 1), 4 * C),
+                            dtype=torch.float32, device=grad.device)
+        table.index_add_(0, (idx + base).reshape(-1),
+                         d_rows.reshape(-1, 4 * C))
+        d_src = pack_quad_adjoint(table.reshape(B, H + 1, W + 1, 4 * C))
+        return d_src.to(ctx.dtype), None, None
+
+
+def window_sample(src: Tensor, xy: Tensor, cfg: dict) -> Tensor:
+    """Sample one source view with the window mode's clamps.
+
+    Counterpart of ``casmvsnet_pl_tpu/ops/plane_sweep.py::_window_view``
+    after its projection: src (B, H, W, C), xy (B, D, H, W, 2) float32
+    source-pixel coordinates (their gradient is not taken), cfg from
+    :func:`window_config`. Returns (B, D, H*W, C) float32: a zeros-padded
+    bilinear sample at each sample's clamped point (x_org + fx,
+    y_org + fy), times the validity of the unclamped point. It equals the
+    exact sample wherever the group's span fits the window.
+    """
+    return _WindowSample.apply(src, xy.detach(), cfg)
+
+
+def window_overflow(xy: Tensor, height: int, width: int, strip_w: int,
+                    window_h: int, depth_group: int) -> Tensor:
+    """(B, ng, hw) bool: the groups in which a valid sample's offset was
+    clamped, so that the window mode's result there is not the exact
+    bilinear sample. xy (B, D, H, W, 2)."""
+    x_org, y_org, fx, _, valid = _window_frame(xy, height, width, strip_w,
+                                               window_h, depth_group)
+    x = xy[..., 0].float().reshape(fx.shape)
+    y = xy[..., 1].float().reshape(fx.shape)
+    clamped = (x - x_org > strip_w - 1.0) | (y - y_org > window_h - 1.0)
+    return (clamped & valid).any(2)
+
+
+@functools.cache
+def _warn_window_once() -> None:
+    """One warning a process that the window mode is an approximation (the
+    text of the JAX package's ``_warn_window_once``)."""
+    warnings.warn(
+        "sampling='window' clamps samples to the strip window edge when a "
+        "depth-group's span exceeds the window; results are exact only "
+        "while group spans fit (see ops/plane_sweep.py window notes).",
+        stacklevel=3)
+
+
+def window_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
+                       groups: int, cfg: dict) -> Tensor:
+    """The cost volume of a level in the window mode, combined as the JAX
+    ``batched_variance_cost_volume`` / ``batched_groupwise_cost_volume``
+    combine it: the reference view first, then the source views in order,
+    sums in float32, cast once. Shapes and result as
+    :func:`plain_cost_volume`; differentiable with respect to feats."""
+    B, V, H, W, C = feats.shape
+    D = depth_values.shape[1]
+    ref = feats[:, 0].reshape(B, 1, H * W, C).float()
+    if groups == 1:
+        s = ref.expand(B, D, H * W, C)
+        sq = s * s
+    else:
+        if C % groups:
+            raise ValueError(f"C={C} is not divisible by groups={groups}")
+        acc = feats.new_zeros((B, D, H * W, groups), dtype=torch.float32)
+    for v, xy in enumerate(_source_coords(proj_mats, depth_values, H, W)):
+        o = window_sample(feats[:, v + 1], xy, cfg)       # (B, D, hw, C)
+        if groups == 1:
+            s = s + o
+            sq = sq + o * o
+        else:
+            k = C // groups
+            prod = (o * ref).reshape(B, D, H * W, groups, k)
+            acc = acc + (prod * (1.0 / k)).sum(-1)
+    # XLA divides by the constant V as a product with its float32
+    # reciprocal; so does this, to the bit.
+    if groups == 1:
+        out = sq * (1.0 / V) - (s * (1.0 / V)) ** 2
+    else:
+        out = acc * (1.0 / (V - 1))
+    return out.to(feats.dtype).reshape(B, D, H, W, -1)
+
+
 def build_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
                       groups: int = 1, sampling: str = "auto") -> Tensor:
     """Differentiable cost volume. Shapes as in :func:`plain_cost_volume`.
@@ -293,15 +510,19 @@ def build_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
     sampling "auto" or "patch": the CUDA kernels (K1 forward, K2 backward)
     for a CUDA tensor, the plain version under autograd for a CPU tensor;
     exact bilinear, as the JAX patch path is. "quad": :func:`quad_cost_volume`.
-    "window" is not ported (ROADMAP Queue 1 item 15) and raises.
+    "window": :func:`window_cost_volume` where :func:`window_config` allows
+    (a warning once a process), else the exact path of "auto", as JAX
+    falls back to its exact samplers.
     """
     if sampling == "quad":
         return quad_cost_volume(feats, proj_mats, depth_values, groups)
     if sampling == "window":
-        raise NotImplementedError(
-            "sampling='window' is not ported to casmvsnet_pl_tpu_torch yet "
-            "(ROADMAP Queue 1 item 15); use 'auto', 'patch' or 'quad'")
-    if sampling not in ("auto", "patch"):
+        cfg = window_config(feats.shape[-1], depth_values.shape[1])
+        if cfg is not None:
+            _warn_window_once()
+            return window_cost_volume(feats, proj_mats, depth_values, groups,
+                                      cfg)
+    elif sampling not in ("auto", "patch"):
         raise ValueError(f"unknown sampling mode {sampling!r}")
     if feats.is_cuda:
         return _CostVolume.apply(feats, proj_mats, depth_values, groups)

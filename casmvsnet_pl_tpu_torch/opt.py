@@ -18,8 +18,7 @@ def sampling_choices():
     ``window`` sampling is a bounded approximation (it clamps bilinear
     supports that exceed the packed strip), so it is not offered as a
     normal choice; ``CASMVS_ENABLE_WINDOW_SAMPLING=1`` lists it, as in the
-    JAX package. The port does not run it yet (ROADMAP Queue 1 item 15:
-    ``build_cost_volume`` raises).
+    JAX package (``ops/plane_sweep.py::window_cost_volume``).
     """
     choices = ['auto', 'quad', 'patch']
     if os.environ.get('CASMVS_ENABLE_WINDOW_SAMPLING') == '1':
@@ -99,9 +98,12 @@ def get_opts(argv=None):
                         choices=sampling_choices(),
                         help='plane-sweep sampling strategy (auto and patch: '
                              'the fused cost-volume kernels; quad: packed-'
-                             'quad rows and the cost epilogue kernels). All '
-                             'listed modes are exact; "window" is listed '
-                             'only with CASMVS_ENABLE_WINDOW_SAMPLING=1.')
+                             'quad rows and the cost epilogue kernels; '
+                             'window: depth groups sharing a clamped window '
+                             'where C <= 8, the fused kernels elsewhere). '
+                             'All modes but window are exact; "window" is '
+                             'listed only with '
+                             'CASMVS_ENABLE_WINDOW_SAMPLING=1.')
     parser.add_argument('--num_workers', type=int, default=4)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--exp_name', type=str, default='exp')

@@ -3,9 +3,13 @@ from .checkpoints import (TopKCheckpointManager, extract_model_params,
 from .convert import jax_from_state_dict, state_dict_from_jax
 from .optimizers import (Lookahead, OptimConfig, RAdam, make_lr_schedule,
                          make_optimizer)
+from .profiling import (StepTimer, device_memory_stats, live_array_bytes,
+                        log_compile_time, trace)
 from .torch_convert import convert_checkpoint
 
 __all__ = ["state_dict_from_jax", "jax_from_state_dict", "convert_checkpoint",
            "OptimConfig", "make_lr_schedule", "make_optimizer", "RAdam",
            "Lookahead", "save_checkpoint", "load_checkpoint",
-           "extract_model_params", "partial_load", "TopKCheckpointManager"]
+           "extract_model_params", "partial_load", "TopKCheckpointManager",
+           "trace", "StepTimer", "device_memory_stats", "live_array_bytes",
+           "log_compile_time"]

@@ -223,6 +223,35 @@ seeded full-width weights with perturbed BatchNorm statistics:
      1152x864x5: 3 K1 launches, the PFMs' shapes, its depth map against
      the original model's forward (bound 0.05 mm).
 
+The window mode (``sampling="window"``: level 0, C=8 and D=8, samples
+depth groups in one clamped window in plain PyTorch on the card; levels 2
+and 1 take K1/K2) and ``utils/profiling.py``:
+ 44. at the plane scene's level-0 shape (640x512, C=8, D=8, V=3, B=1 and
+     2), the window sampler of each source view and the window cost
+     volume (variance and G=8) on the card against the same functions run
+     on the CPU and moved to the card: f32 <= 2e-6 abs, bf16 <= 2 bf16
+     ulps; the share of groups whose span leaves the window; the level's
+     bf16 cost volume timed against K1 (B=1 forward) and K1 + K2 (B=2
+     forward + backward) at the same shape, in turns;
+ 45. the f32 forward through ``entry(sampling="window")`` against the
+     default path (< 0.05 mm on depth_0 at the pixels in no overflowing
+     level-0 group), then the bf16 window forward: exactly 2 K1 launches
+     and no other kernel; bf16 forwards timed at B=1 and B=4 (beside
+     phase 6's default path);
+ 46. one f32 SGD step through ``train_entry(sampling="window")`` with
+     K1/K2 against the same route with the plain exact path, as phase 9;
+     then 10 bf16 Adam steps at 640x512x3, B=2: 2 K1 + 2 K2 a step, a
+     falling loss; ms per step and peak memory;
+ 47. ``eval_torch.run_inference --sampling window`` in bf16 over phase
+     29's tree at 1152x864x5: exactly 10 K1 launches, depths finite and
+     inside the swept range, ms per view and peak memory; the first view's
+     depth_0 against the default path and its share of overflowing
+     level-0 groups;
+ 48. ``utils/profiling.trace`` around one bf16 window forward writes a
+     Chrome trace that names K1 twice; ``device_memory_stats()`` reports
+     the card with a peak above 0; the window forward's and train step's
+     device time by kernel name.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -243,6 +272,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2399,6 +2429,299 @@ def checkpoint_path(card, eval_work: str) -> dict:
             "eval_converted": eval_counts}
 
 
+# --- the window mode (sampling="window"), and utils/profiling.py ------------
+
+WINDOW_TOL = 2e-6       # f32, tests/test_window_sampling.py's own bound
+WINDOW_ULPS = 2.0       # bf16
+# the window applies at level 0 (C=8, D=8); levels 2 and 1 take K1/K2
+WINDOW_FWD = {"cost_volume_cuda": 2}
+WINDOW_STEP = {"cost_volume_cuda": 2, "cost_volume_bwd_cuda": 2}
+WINDOW_TRAIN_STEPS = 10
+K1_SYMBOL = "cost_volume_kernel"
+
+
+def window_recorder(overflow: list):
+    """A ``cost_volume`` for the model: the window mode, which appends each
+    windowed level's (B, H, W) mask of pixels in an overflowing group of
+    any source view to ``overflow``."""
+    from casmvsnet_pl_tpu_torch.ops import build_cost_volume, project_to_src
+    from casmvsnet_pl_tpu_torch.ops.plane_sweep import (window_config,
+                                                        window_overflow)
+
+    def cost_volume(feats, proj, dv, groups):
+        cfg = window_config(feats.shape[-1], dv.shape[1])
+        if cfg is not None:
+            B, _, H, W, _ = feats.shape
+            masks = [window_overflow(project_to_src(proj[:, v], dv, H, W),
+                                     H, W, **cfg)
+                     for v in range(proj.shape[1])]
+            overflow.append(torch.stack(masks).any(0).any(1)
+                            .reshape(B, H, W))
+        return build_cost_volume(feats, proj, dv, groups, sampling="window")
+    return cost_volume
+
+
+def plain_window_cost_volume(feats, proj, dv, groups):
+    """The window route with the plain exact path in place of K1/K2."""
+    from casmvsnet_pl_tpu_torch.ops import build_cost_volume, plain_cost_volume
+    from casmvsnet_pl_tpu_torch.ops.plane_sweep import window_config
+    if window_config(feats.shape[-1], dv.shape[1]) is None:
+        return plain_cost_volume(feats, proj, dv, groups)
+    return build_cost_volume(feats, proj, dv, groups, sampling="window")
+
+
+def check_window_sampler(inputs, inputs2, card) -> None:
+    """Phase 44: at the plane scene's level-0 shape (C=8, D=8, V=3, B=1
+    and 2), the window sampler of each source view and the window cost
+    volume (variance and G=8) on the card against the same functions on
+    the CPU, moved to the card: f32 within WINDOW_TOL, bf16 within
+    WINDOW_ULPS; the share of groups whose span leaves the window; the
+    level's forward and forward + backward beside K1 (K1 + K2) at the same
+    shape."""
+    from casmvsnet_pl_tpu_torch.ops import build_cost_volume, project_to_src
+    from casmvsnet_pl_tpu_torch.ops.plane_sweep import (window_config,
+                                                        window_overflow,
+                                                        window_sample)
+    g = torch.Generator(device=DEVICE).manual_seed(44)
+    l, C, D, h, w = levels()[-1]
+    cfg = window_config(C, D)
+    for batch, inp in ((1, inputs), (2, inputs2)):
+        proj, dv = inp[l]
+        feats = torch.rand((batch, 3, h, w, C), generator=g, device=DEVICE)
+        worst, overflow = 0.0, []
+        for v in range(2):
+            xy = project_to_src(proj[:, v], dv, h, w)
+            overflow.append(window_overflow(xy, h, w, **cfg))
+            got = window_sample(feats[:, v + 1], xy, cfg)
+            want = window_sample(feats[:, v + 1].cpu(), xy.cpu(), cfg)
+            worst = max(worst, (got - want.to(DEVICE)).abs().max().item())
+        errs = {}
+        for groups in (1, 8):
+            got = build_cost_volume(feats, proj, dv, groups,
+                                    sampling="window")
+            want = build_cost_volume(feats.cpu(), proj.cpu(), dv.cpu(),
+                                     groups, sampling="window").to(DEVICE)
+            fb = feats.to(torch.bfloat16)
+            gb = build_cost_volume(fb, proj, dv, groups, sampling="window")
+            wb = build_cost_volume(fb.cpu(), proj.cpu(), dv.cpu(), groups,
+                                   sampling="window").to(DEVICE)
+            errs[groups] = ((got - want).abs().max().item(),
+                            ((gb.float() - wb.float()).abs()
+                             / bf16_ulp(wb)).max().item())
+        share = torch.stack(overflow).float().mean().item()
+        print(f"window-check L{l} B={batch} {w}x{h} C={C} D={D} card vs "
+              f"CPU: sampler f32 max_abs_err={worst!r}; cost volume "
+              f"variance f32 max_abs_err={errs[1][0]!r} bf16 max_ulps="
+              f"{errs[1][1]!r}, groupwise8 f32 max_abs_err={errs[8][0]!r} "
+              f"bf16 max_ulps={errs[8][1]!r} (bounds {WINDOW_TOL}, "
+              f"{WINDOW_ULPS} ulps); groups overflowing the window "
+              f"{share!r}")
+        if not worst <= WINDOW_TOL or not all(
+                e <= WINDOW_TOL and u <= WINDOW_ULPS for e, u in
+                errs.values()):
+            raise AssertionError(f"window sampler card vs CPU B={batch}")
+    # the level's cost volume, bf16: the window route against K1 (forward,
+    # B=1) and K1 + K2 (forward + backward, B=2)
+    for batch, inp, backward in ((1, inputs, False), (2, inputs2, True)):
+        proj, dv = inp[l]
+        feats = torch.rand((batch, 3, h, w, C), generator=g, device=DEVICE,
+                           dtype=torch.bfloat16, requires_grad=backward)
+        go = torch.randn((batch, D, h, w, C), generator=g, device=DEVICE,
+                         dtype=torch.bfloat16)
+
+        def run(sampling):
+            out = build_cost_volume(feats, proj, dv, sampling=sampling)
+            if backward:
+                out.backward(go)
+            return out
+        ms = {s: cuda_ms(lambda: run(s), 10) for s in ("auto", "window",
+                                                       "window", "auto")}
+        print(f"timing cost volume L{l} bf16 B={batch} "
+              f"{'forward + backward' if backward else 'forward'}: window "
+              f"{ms['window']!r} ms, K1{' + K2' if backward else ''} "
+              f"{ms['auto']!r} ms (each the second of two turns) [{card}]")
+
+
+def check_window_forward(entry, card) -> dict:
+    """Phase 45: the f32 forward through ``entry(sampling="window")``
+    against the default path (< 0.05 mm on depth_0 at the pixels outside
+    an overflowing level-0 group), then the bf16 window main path (2 K1
+    launches, no other kernel) and its times at B=1 and 4."""
+    outs, overflow = {}, []
+    for sampling, want, cv in (("auto", DEFAULT_FWD, None),
+                               ("window", WINDOW_FWD,
+                                window_recorder(overflow))):
+        fn, args = sharpened_f32_forward(entry, sampling)
+        outs[sampling] = counted(lambda: fn(*args, cost_volume=cv), want,
+                                 f"f32 forward sampling={sampling}")
+        del fn, args
+    mask, = overflow
+    keep = ~mask
+    d = (outs["window"][0] - outs["auto"][0]).abs()
+    dd = d[keep].max().item() if keep.any() else 0.0
+    dc = (outs["window"][1] - outs["auto"][1]).abs().max().item()
+    print(f"forward f32 sampling=window vs default: max|d depth_0|={dd!r} mm "
+          f"at the {keep.sum().item()} of {keep.numel()} pixels in no "
+          f"overflowing group (bound {DEPTH_TOL_MM}; all pixels "
+          f"{d.max().item()!r} mm), max|d confidence_2|={dc!r}; pixels in "
+          f"an overflowing group {mask.float().mean().item()!r}")
+    if not dd < DEPTH_TOL_MM:
+        raise AssertionError(f"f32 window depth_0 vs default {dd} mm")
+    counts = forward_main_path(entry, WINDOW_FWD, " sampling=window",
+                               sampling="window")
+    time_forward(entry, card, label=" sampling=window", sampling="window")
+    return counts
+
+
+def check_window_train(train_entry, card) -> dict:
+    """Phase 46: one f32 SGD step, the window route with K1/K2 against it
+    with the plain exact path (as phase 9), then WINDOW_TRAIN_STEPS bf16
+    Adam steps at full width (2 K1 + 2 K2 a step) and the step's time and
+    peak memory."""
+    check_train_step(train_entry, plain_window_cost_volume, WINDOW_STEP,
+                     sampling="window")
+    trainer, state, batch, counts = train_main_path(
+        train_entry, card, WINDOW_TRAIN_STEPS, WINDOW_STEP,
+        sampling="window")
+    time_train(trainer, state, batch, card, label=" sampling=window")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def eval_window(eval_work: str, card) -> dict:
+    """Phase 47: ``eval_torch.run_inference --sampling window`` in bf16 over
+    phase 29's tree at 1152x864x5: 2 K1 launches a view and no other
+    kernel, depths finite and inside the swept range, ms per view and peak
+    memory; then the first view's depth_0 against the default path's and
+    the share of its level-0 groups that overflow the window."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import read_pfm
+
+    tree = os.path.join(eval_work, "tree")
+    # the CLIs list sampling="window" only with this variable set
+    with mock.patch.dict(os.environ, {"CASMVS_ENABLE_WINDOW_SAMPLING": "1"}):
+        args = eval_args(tree, "--sampling", "window")
+    ds = eval_reader(os.path.join(eval_work, "lists"))(
+        tree, "test", n_views=EVAL_VIEWS, img_wh=EVAL_WH)
+    predict = eval_torch.build_predictor(args)
+    work = os.path.join(eval_work, "window")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        records = eval_torch.run_inference(args, ds, ds.scans, predict)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        depths = [read_pfm(f"results/dtu/depth/{EVAL_SCAN}/"
+                           f"depth_{vid:04d}.pfm")[0]
+                  for vid in range(EVAL_VIEWS)]
+    finally:
+        os.chdir(cwd)
+    expect_counts(counts, scaled(WINDOW_FWD, EVAL_VIEWS),
+                  "eval_torch --sampling window")
+    lo, hi = sweep_range(args, float(ds[0]["init_depth_min"]),
+                         args.depth_interval)
+    W, H = EVAL_WH
+    for vid, depth in enumerate(depths):
+        if depth.shape != (H, W) or not (np.isfinite(depth).all()
+                                         and lo <= depth.min()
+                                         and depth.max() <= hi):
+            raise AssertionError(f"window eval view {vid}: depth "
+                                 f"{depth.shape} outside [{lo}, {hi}]")
+    sample = ds[0]
+    inputs = (torch.from_numpy(sample["imgs"][None]).to(DEVICE),
+              torch.from_numpy(sample["proj_mats"][None]).to(DEVICE),
+              float(sample["init_depth_min"]),
+              float(sample["depth_interval"]))
+    overflow = []
+    d_win, _ = predict(*inputs, cost_volume=window_recorder(overflow))
+    default = eval_torch.build_predictor(eval_args(tree))
+    d_def, _ = default(*inputs)
+    dev = (d_win.float() - d_def.float()).abs()
+    fwd = [r["forward_ms"] for r in records]
+    view = [r["view_ms"] for r in records]
+    print(f"eval inference bf16 --sampling window {W}x{H}x{EVAL_VIEWS}, "
+          f"{len(records)} views through eval_torch.run_inference: forward "
+          f"{statistics.median(fwd[1:])!r} ms per view (CUDA events, median "
+          f"of views 2-{len(records)}; first {fwd[0]!r}), with reading and "
+          f"writing {statistics.median(view[1:])!r} ms; peak memory "
+          f"{peak!r} GiB; depths in [{lo}, {hi}]; launches {counts}; view "
+          f"0 against the default path: max|d depth_0| "
+          f"{dev.max().item()!r} mm, mean {dev.mean().item()!r} mm, pixels "
+          f"over 1 mm {(dev > 1.0).float().mean().item()!r}; its pixels "
+          f"in an overflowing level-0 group "
+          f"{overflow[0].float().mean().item()!r} [{card}]")
+    del predict, default
+    torch.cuda.empty_cache()
+    return counts
+
+
+def trace_window(entry, train_entry, card) -> None:
+    """Phase 48: ``utils/profiling.trace`` around one bf16 window forward
+    (B=1) writes a Chrome trace naming K1 twice; ``device_memory_stats``
+    reports the card with a peak above 0; then the window forward's and
+    train step's device time by kernel name."""
+    from casmvsnet_pl_tpu_torch.utils import (StepTimer, device_memory_stats,
+                                              live_array_bytes, trace)
+    fn, args = entry(DEVICE, torch.bfloat16, img_wh=IMG_WH,
+                     sampling="window")
+    fn(*args)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+        timer = StepTimer()
+        timer.tick(True)
+        with trace(log_dir):
+            fn(*args)
+        s = timer.tick(True)
+        files = os.listdir(log_dir)
+        if len(files) != 1:
+            raise AssertionError(f"trace wrote {files}")
+        path = os.path.join(log_dir, files[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = [n for n in kernels if K1_SYMBOL in n]
+    stats = device_memory_stats()
+    print(f"profiling.trace of one bf16 window forward: {files[0]} "
+          f"{size} bytes, {len(events)} events, {len(kernels)} kernel "
+          f"launches, {len(k1)} of them {K1_SYMBOL}; the traced forward "
+          f"{s!r} s by StepTimer; device_memory_stats {stats}; "
+          f"live_array_bytes {live_array_bytes()} [{card}]")
+    if len(k1) != WINDOW_FWD.get("cost_volume_cuda", 0):
+        raise AssertionError(f"the trace names {K1_SYMBOL} {len(k1)} times")
+    if not (len(stats) == torch.cuda.device_count()
+            and stats[0]["peak_bytes_in_use"] > 0):
+        raise AssertionError(f"device_memory_stats {stats}")
+    profile(lambda: fn(*args), " forward bf16 B=1 sampling=window", card)
+    del fn, args
+    trainer, state, batch = train_entry(DEVICE, img_wh=IMG_WH,
+                                        sampling="window")
+    profile(lambda: trainer.train_step(state, batch),
+            " train step bf16 B=2 sampling=window", card)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+
+def window_path(entry, train_entry, inputs, inputs2, eval_work: str,
+                card) -> dict:
+    """Phases 44-48 (``eval_work`` holds phase 29's tree); returns the
+    launches of the window forward, train and eval paths."""
+    t0 = time.perf_counter()
+    check_window_sampler(inputs, inputs2, card)
+    paths = {"window_inference": check_window_forward(entry, card)}
+    paths["window_train"] = check_window_train(train_entry, card)
+    paths["window_eval"] = eval_window(eval_work, card)
+    trace_window(entry, train_entry, card)
+    print(f"window path (phases 44-48): {time.perf_counter() - t0!r} s wall "
+          f"[{card}]")
+    return paths
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -2482,6 +2805,8 @@ def main() -> int:
             paths.update(jpeg_path(card, work))
         torch.cuda.empty_cache()
         paths.update(checkpoint_path(card, eval_work))
+        paths.update(window_path(entry, train_entry, inputs, inputs2,
+                                 eval_work, card))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -2496,7 +2821,8 @@ def main() -> int:
     default_paths = ("inference", "train", "quad_inference", "quad_train",
                      "eval", "eval_g8", "train_cli", "bmvs_train",
                      "tanks_eval", "bmvs_eval", "demo", "demo_jax",
-                     "eval_converted")
+                     "eval_converted", "window_inference", "window_train",
+                     "window_eval")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

@@ -42,6 +42,7 @@ from casmvsnet_pl_tpu_torch.data.jpeg import write_jpeg
 from casmvsnet_pl_tpu_torch.entry import init_weights
 from casmvsnet_pl_tpu_torch.fusion import fuse_and_write
 from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
+from casmvsnet_pl_tpu_torch.opt import sampling_choices
 from casmvsnet_pl_tpu_torch.utils import extract_model_params, load_checkpoint
 from casmvsnet_pl_tpu_torch.utils.visualization import COLORMAPS
 
@@ -74,8 +75,10 @@ def get_opts(argv=None):
     parser.add_argument('--precision', type=str, default='bf16',
                         choices=['bf16', 'f32'])
     parser.add_argument('--sampling', type=str, default='auto',
-                        choices=['auto', 'quad', 'patch'],
-                        help='plane-sweep sampling strategy (all exact)')
+                        choices=sampling_choices(),
+                        help='plane-sweep sampling strategy (all listed '
+                             'modes are exact; the approximate "window" '
+                             'mode needs CASMVS_ENABLE_WINDOW_SAMPLING=1)')
     # point cloud fusion
     parser.add_argument('--conf', type=float, default=0.999,
                         help='min confidence for a pixel to be valid')

@@ -36,7 +36,7 @@ def test_package_imports_no_jax_pil_or_cv2():
         "for m in ('opt', 'parallel.dist', 'parallel.sync_bn', "
         "'utils.tensorboard', 'utils.visualization', 'data.jpeg', "
         "'data.blendedmvs', 'data.tanks', 'utils.msgpack', "
-        "'utils.torch_convert'):\n"
+        "'utils.torch_convert', 'utils.profiling'):\n"
         "    assert 'casmvsnet_pl_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -206,11 +206,17 @@ def test_warp_runs_on_cpu_without_kernels():
 
 
 def test_window_sampling_raises():
+    """entry("cpu", sampling="window") raises nothing: it runs the window
+    mode at level 0 and the plain exact path at levels 1 and 2, and
+    launches no kernel."""
     from casmvsnet_pl_tpu_torch.entry import entry
 
     fn, args = entry("cpu", img_wh=(64, 32), sampling="window")
-    with pytest.raises(NotImplementedError, match="window.*item 15"):
-        fn(*args)
+    before = _all_launches()
+    depth, conf = fn(*args)
+    assert _all_launches() == before
+    assert depth.shape == (1, 32, 64) and conf.shape == (1, 8, 16)
+    assert torch.isfinite(depth).all() and torch.isfinite(conf).all()
 
 
 PROBE_WRAPPERS = ["lane_prefix_copy_cuda", "row_gather_ldg_cuda",

@@ -132,11 +132,13 @@ def test_quad_route_coordinates_get_no_gradient():
 
 
 def test_window_sampling_is_refused():
+    """An unknown sampling mode is refused; the window mode is known
+    (tests/test_torch_port_window.py holds it against JAX)."""
     rng = np.random.RandomState(4)
     feats, proj, dv = (torch.from_numpy(a) for a in
                        _scene(rng, 8, 8, **GEOMETRIES["translation"]))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        build_cost_volume(feats, proj, dv, sampling="window")
+    out = build_cost_volume(feats, proj, dv, sampling="window")
+    assert out.shape == (2, 8, 12, 16, 8)
     with pytest.raises(ValueError, match="unknown"):
         build_cost_volume(feats, proj, dv, sampling="bilinear")
 

@@ -62,10 +62,17 @@ def _samples(n=2):
 
 
 def test_train_step_matches_jax_trainer():
+    check_step_against_jax_trainer("auto")
+
+
+def check_step_against_jax_trainer(sampling: str) -> None:
+    """One SGD step of both trainers with the model's ``sampling`` (the
+    JAX model's too), held by the bounds of the module docstring."""
     batch = collate(_samples())
     kw = dict(optimizer="sgd", lr=1e-2, momentum=0.0, weight_decay=0.0)
 
-    jt = JaxTrainer(JaxCascade(n_depths=N_DEPTHS, interval_ratios=RATIOS),
+    jt = JaxTrainer(JaxCascade(n_depths=N_DEPTHS, interval_ratios=RATIOS,
+                               sampling=sampling),
                     JaxOptimConfig(**kw), steps_per_epoch=10,
                     mesh=make_mesh(1))
     jstate = jt.init_state(jax_collate(_samples()), seed=0)
@@ -76,7 +83,8 @@ def test_train_step_matches_jax_trainer():
                                                jstate.batch_stats)))
     start = state_dict_from_jax(params0, stats0)
 
-    model = CascadeMVSNet(n_depths=N_DEPTHS, interval_ratios=RATIOS)
+    model = CascadeMVSNet(n_depths=N_DEPTHS, interval_ratios=RATIOS,
+                          sampling=sampling)
     model.load_state_dict(start, strict=True)
     trainer = MVSTrainer(model, OptimConfig(**kw), steps_per_epoch=10,
                          device="cpu")
