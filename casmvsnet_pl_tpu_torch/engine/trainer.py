@@ -102,6 +102,8 @@ class MVSTrainer:
         # with time_steps, fit synchronizes after every train step and
         # records {"wait_s", "step_s", "loss"} of it here
         self.step_times: list[dict] | None = [] if time_steps else None
+        # fit appends each epoch's validation metrics here
+        self.epoch_metrics: list[dict[str, float]] = []
 
     # -- state -------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -297,6 +299,7 @@ class MVSTrainer:
                         "step_s": time.perf_counter() - t_wait})
                 batch_nb += 1
             metrics = self.validate(state, val_loader, epoch, state.step)
+            self.epoch_metrics.append(metrics)
             if self.ckpt_mgr is not None:
                 self.ckpt_mgr.save(self.checkpoint_tree(state), metrics,
                                    epoch)

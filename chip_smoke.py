@@ -252,6 +252,36 @@ and 1 take K1/K2) and ``utils/profiling.py``:
      the card with a peak above 0; the window forward's and train step's
      device time by kernel name.
 
+Training quality (``engine/convergence.py``: the JAX suite's 4-epoch
+TinyDTU fit, ``tests/conftest.py::quality_fit``, at 64x64 with n_depths
+8/8/16, and its fused cloud), in a temporary directory:
+ 49. the recipe's fit in f32 on the CPU (one thread, the plain cost volume)
+     from ``init_weights`` seed 0, the reference trajectory; then the same
+     weights in bf16 on the card through K1/K2: exactly 3 K1 + 3 K2 a
+     train step, 3 K1 a val batch (before the fit, each epoch, after) and
+     3 K1 an epoch's train panel, and no other kernel; the thresholds of
+     ``tests/test_train_loop.py::test_fit_quality_and_artifacts`` (untrained
+     abs_err > 8.0 mm, the val loss falls, abs_err < 4.0 mm, acc_2mm > 0.3),
+     ``last.ckpt``, an ``epoch=`` checkpoint and an events file; the card's
+     val abs_err within max(2.0 mm, 0.2 x the CPU's) of the CPU's before
+     the fit and after every epoch. Then the fit from seeds 1-3 on the card,
+     whose final abs_err and acc_2mm are printed, not held;
+ 50. the fit in bf16 on the card from the JAX package's own initial weights
+     (``init_state``'s PRNGKey 0, made without JAX by
+     ``utils/jax_init.py``; the start that the JAX suite's fused-cloud test
+     and ``scripts/tpu_convergence.py`` use): exactly 3 K1 + 3 K2 a step
+     and 3 K1 a val batch, its trajectory and thresholds printed; then
+     ``eval_torch.run_inference`` in bf16 from its ``last.ckpt`` over the
+     test scan (5 views at 64x64x3; 3 K1 a view), ``run_fusion`` (--conf 0.5
+     --min_geo_consistent 2), and the cloud scored by
+     ``evaluations/dtu/eval_dtu_torch.py`` in a subprocess against the
+     plane's closed-form surface: more than 500 points, n_data > 500, n_stl
+     > 1000, and mean accuracy, completeness and overall each below 12.0 mm
+     (``tests/test_eval_pipeline.py::test_fused_cloud_quality``). The cloud
+     of phase 49's checkpoint (seed 0) is scored the same way and printed,
+     not held: from that start the recipe's cloud misses the bound on the
+     CPU too, in the JAX package as in the port (``PERF.md`` §6).
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -2722,6 +2752,202 @@ def window_path(entry, train_entry, inputs, inputs2, eval_work: str,
     return paths
 
 
+# --- training quality: the JAX suite's 4-epoch fit and its fused cloud ------
+
+QUALITY_EPOCHS = 4
+QUALITY_DTYPE = torch.bfloat16
+QUALITY_SEEDS = (1, 2, 3)      # the spread over init_weights' seeds: printed
+# phase 50: tests/test_eval_pipeline.py::test_fused_cloud_quality's eval
+# flags and bounds (acc, comp and overall in mm; points in the cloud)
+CLOUD_FLAGS = ("--conf", "0.5", "--min_geo_consistent", "2")
+CLOUD_MM = 12.0
+CLOUD_MIN_POINTS = 500
+CLOUD_MIN_STL = 1000
+CLOUD_SCAN = 1                 # eval_dtu_torch.py reads scan{N}.ply
+
+
+def fit_summary(fit: dict) -> str:
+    from casmvsnet_pl_tpu_torch.engine import convergence
+    after = fit["after"]
+    return (f"val abs_err {convergence.trajectory(fit)!r} mm (before, "
+            f"epochs 1-{len(fit['epochs'])}), after: abs_err "
+            f"{after['val/abs_err']!r} acc_2mm {after['val/acc_2mm']!r} "
+            f"loss {fit['before']['val/loss']!r} -> {after['val/loss']!r}; "
+            f"{fit['step_ms']!r} ms a step (wall, a sync a step, loader "
+            f"included, median from step 3); {fit['wall_s']!r} s")
+
+
+def quality_fit_path(work: str, card) -> tuple[dict, str, type]:
+    """Phase 49; returns the card fit's launches, its ``last.ckpt`` and the
+    tree's reader."""
+    from casmvsnet_pl_tpu_torch.engine import convergence
+
+    root = os.path.join(work, "tiny_dtu")
+    dataset_cls = convergence.write_tiny_dtu(root)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # one summation order on the CPU
+    try:
+        ref = convergence.quality_fit(root, "cpu", torch.float32, seed=0,
+                                      epochs=QUALITY_EPOCHS)
+    finally:
+        torch.set_num_threads(threads)
+    print(f"quality fit f32 CPU (one thread, plain cost volume, "
+          f"init_weights seed 0): {fit_summary(ref)}")
+    ckpt_dir, log_dir = (os.path.join(work, d) for d in ("ckpts", "logs"))
+    reset_counts()
+    fit = convergence.quality_fit(root, DEVICE, QUALITY_DTYPE, seed=0,
+                                  epochs=QUALITY_EPOCHS, ckpt_dir=ckpt_dir,
+                                  log_dir=log_dir)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = convergence.expected_launches(QUALITY_EPOCHS, panels=True)
+    print(f"quality fit {str(QUALITY_DTYPE)[6:]} on the card (K1/K2, the "
+          f"same weights): {fit_summary(fit)}; launches {counts} [{card}]")
+    expect_counts(counts, want, "quality fit")
+    trajectory, ref_trajectory = (convergence.trajectory(f)
+                                  for f in (fit, ref))
+    failures = convergence.threshold_failures(fit) + \
+        convergence.track_failures(trajectory, ref_trajectory)
+    files = os.listdir(ckpt_dir)
+    if "last.ckpt" not in files or not any(f.startswith("epoch=")
+                                           for f in files):
+        failures.append(f"checkpoints: {sorted(files)}")
+    if not any(f.startswith("events") for f in os.listdir(log_dir)):
+        failures.append(f"no events in {os.listdir(log_dir)}")
+    band = convergence.TRACK_BAND
+    diffs = [g - r for g, r in zip(trajectory, ref_trajectory)]
+    print(f"quality fit card - CPU abs_err per epoch {diffs!r} mm (band "
+          f"max({band['mm']} mm, {band['rel']} x CPU)); thresholds "
+          f"{convergence.THRESHOLDS}")
+    if failures:
+        raise AssertionError(f"quality fit: {failures}")
+    for seed in QUALITY_SEEDS:
+        other = convergence.quality_fit(root, DEVICE, QUALITY_DTYPE,
+                                        seed=seed, epochs=QUALITY_EPOCHS)
+        after = other["after"]
+        print(f"quality fit seed {seed} on the card: abs_err "
+              f"{after['val/abs_err']!r} mm acc_2mm "
+              f"{after['val/acc_2mm']!r}, thresholds "
+              f"{convergence.threshold_failures(other) or 'met'}; "
+              f"trajectory {convergence.trajectory(other)!r} [{card}]")
+    return counts, os.path.join(ckpt_dir, "last.ckpt"), dataset_cls
+
+
+def cloud_score(work: str, dataset_cls, ckpt: str, tag: str, card
+                ) -> tuple[dict, int, dict]:
+    """``eval_torch``'s inference and fusion of ``ckpt`` over the recipe's
+    test scan, the cloud scored by ``eval_dtu_torch.py`` in a subprocess;
+    returns the inference's launches, the cloud's points and the scan's
+    JSON record (with ``overall``)."""
+    import eval_torch
+    from casmvsnet_pl_tpu_torch.data import PlaneScene
+    from casmvsnet_pl_tpu_torch.engine import convergence
+    from casmvsnet_pl_tpu_torch.fusion import read_ply, write_ply
+
+    root = os.path.join(work, "tiny_dtu")
+    args = eval_torch.get_opts([
+        "--root_dir", root, "--split", "test", "--n_views",
+        str(convergence.N_VIEWS), "--img_wh", "64", "64", "--n_depths",
+        *map(str, convergence.N_DEPTHS), "--interval_ratios",
+        *map(str, convergence.INTERVAL_RATIOS), "--precision",
+        "bf16" if QUALITY_DTYPE == torch.bfloat16 else "f32",
+        "--ckpt_path", ckpt, *CLOUD_FLAGS])
+    ds = dataset_cls(root, "test", n_views=convergence.N_VIEWS,
+                     img_wh=(64, 64))
+    scan = convergence.SCANS["test"]
+    reset_counts()
+    records = eval_torch.run_inference(args, ds, [scan])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(counts, scaled(DEFAULT_FWD, len(ds)), "cloud inference")
+    t0 = time.perf_counter()
+    eval_torch.run_fusion(args, ds, [scan])
+    fusion_s = time.perf_counter() - t0
+    scored = os.path.join(work, f"scored_{tag}")
+    os.makedirs(scored)
+    xyz, rgb = read_ply(f"results/dtu/points/{scan}.ply")
+    write_ply(os.path.join(scored, f"scan{CLOUD_SCAN}.ply"), xyz, rgb)
+    stl = PlaneScene(img_wh=(64, 64), n_views=5, z0=460.0,
+                     slope_x=0.3).surface_points()
+    write_ply(os.path.join(scored, f"stl{CLOUD_SCAN:03d}_total.ply"), stl,
+              np.zeros(stl.shape, np.uint8))
+    out_json = os.path.join(scored, "dtu_eval.json")
+    subprocess.run([sys.executable, os.path.join(
+        REPO, "evaluations", "dtu", "eval_dtu_torch.py"), "--ply_dir",
+        scored, "--gt_dir", scored, "--scans", str(CLOUD_SCAN), "--out_json",
+        out_json], check=True, timeout=300)
+    with open(out_json) as f:
+        (res,) = json.load(f)["per_scan"]
+    res["overall"] = 0.5 * (res["mean_acc"] + res["mean_comp"])
+    fwd = [r["forward_ms"] for r in records]
+    print(f"trained cloud ({tag}): {len(xyz)} points fused from "
+          f"{len(records)} views ({args.precision} inference at "
+          f"64x64x{convergence.N_VIEWS}, {CLOUD_FLAGS}); eval_dtu_torch.py: "
+          f"acc {res['mean_acc']!r} comp {res['mean_comp']!r} overall "
+          f"{res['overall']!r} mm (bound {CLOUD_MM}), n_data "
+          f"{res['n_data']} n_stl {res['n_stl']}; forward "
+          f"{statistics.median(fwd[1:])!r} ms per view (CUDA events, median "
+          f"of views 2-{len(fwd)}; first {fwd[0]!r}); fusion "
+          f"{1e3 * fusion_s / len(records)!r} ms per view; launches "
+          f"{counts} [{card}]")
+    return counts, len(xyz), res
+
+
+def cloud_path(work: str, seed_ckpt: str, dataset_cls, card) -> dict:
+    """Phase 50 (in ``work``, phase 49's directory); returns the launches of
+    the fit from JAX's start and of its cloud's inference."""
+    from casmvsnet_pl_tpu_torch.engine import convergence
+    from casmvsnet_pl_tpu_torch.utils import jax_initial_weights
+
+    ckpt_dir = os.path.join(work, "ckpts_jax")
+    reset_counts()
+    fit = convergence.quality_fit(
+        os.path.join(work, "tiny_dtu"), DEVICE, QUALITY_DTYPE,
+        weights=jax_initial_weights(convergence.model(), 0),
+        epochs=QUALITY_EPOCHS, ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    fit_counts = read_counts()
+    print(f"quality fit {str(QUALITY_DTYPE)[6:]} on the card from JAX's "
+          f"initial weights (PRNGKey 0, utils/jax_init.py): "
+          f"{fit_summary(fit)}; thresholds "
+          f"{convergence.threshold_failures(fit) or 'met'}; launches "
+          f"{fit_counts} [{card}]")
+    expect_counts(fit_counts, convergence.expected_launches(
+        QUALITY_EPOCHS, panels=False), "quality fit from JAX's start")
+    counts, points, res = cloud_score(
+        work, dataset_cls, os.path.join(ckpt_dir, "last.ckpt"), "jax_start",
+        card)
+    if not (points > CLOUD_MIN_POINTS and res["n_data"] > CLOUD_MIN_POINTS
+            and res["n_stl"] > CLOUD_MIN_STL):
+        raise AssertionError(f"trained cloud: {points} points, {res}")
+    if not (res["mean_acc"] < CLOUD_MM and res["mean_comp"] < CLOUD_MM
+            and res["overall"] < CLOUD_MM):
+        raise AssertionError(f"trained cloud scores {res}")
+    # phase 49's fit, from init_weights seed 0: reported, not held
+    cloud_score(work, dataset_cls, seed_ckpt, "init_weights_seed_0", card)
+    return {"quality_fit_jax": fit_counts, "quality_cloud": counts}
+
+
+def quality_path(card) -> dict:
+    """Phases 49-50 in a temporary directory; returns the launches of the
+    card's fit from seed 0 (phase 49), of its fit from JAX's start and of
+    that fit's cloud inference (phase 50)."""
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as work:
+        try:
+            os.chdir(work)
+            fit_counts, ckpt, dataset_cls = quality_fit_path(work, card)
+            t49 = time.perf_counter()
+            paths = cloud_path(work, ckpt, dataset_cls, card)
+        finally:
+            os.chdir(cwd)
+    t50 = time.perf_counter()
+    print(f"quality path (phases 49-50): {t50 - t0!r} s wall (49: "
+          f"{t49 - t0!r}, 50: {t50 - t49!r}) [{card}]")
+    return {"quality_fit": fit_counts, **paths}
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -2807,6 +3033,7 @@ def main() -> int:
         paths.update(checkpoint_path(card, eval_work))
         paths.update(window_path(entry, train_entry, inputs, inputs2,
                                  eval_work, card))
+    paths.update(quality_path(card))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -2822,7 +3049,8 @@ def main() -> int:
                      "eval", "eval_g8", "train_cli", "bmvs_train",
                      "tanks_eval", "bmvs_eval", "demo", "demo_jax",
                      "eval_converted", "window_inference", "window_train",
-                     "window_eval")
+                     "window_eval", "quality_fit", "quality_fit_jax",
+                     "quality_cloud")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"
