@@ -45,11 +45,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def make_inputs(batch: int, img_wh=(640, 512), n_views: int = 3,
-                device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+                device="cpu", focal: float = 600.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plane-scene images (B, V, H, W, 3) and projections (B, V-1, 3, 3, 4),
-    float32, with the rig of ``bench.py::make_inputs``."""
+    float32, with the rig of ``bench.py::make_inputs`` (``focal`` 1000 is
+    ``scripts/profile_eval_res.py``'s)."""
     scene = PlaneScene(img_wh=tuple(img_wh), n_views=n_views, z0=460.0,
-                       baseline=12.0, focal=600.0, slope_x=0.2)
+                       baseline=12.0, focal=focal, slope_x=0.2)
     imgs, proj, _ = scene.model_inputs()
     imgs = torch.from_numpy(imgs).to(device).repeat(batch, 1, 1, 1, 1)
     proj = torch.from_numpy(proj).to(device).repeat(batch, 1, 1, 1, 1)
@@ -58,12 +60,13 @@ def make_inputs(batch: int, img_wh=(640, 512), n_views: int = 3,
 
 def entry(device="cuda", dtype: torch.dtype | None = None, batch: int = 1,
           img_wh=(640, 512), seed: int = 0, sampling: str = "auto",
-          num_groups: int = 1):
+          num_groups: int = 1, n_views: int = 3, focal: float = 600.0):
     """(fn, args): ``fn(*args)`` runs the inference forward and returns
     ``(depth_0 (B, H, W), confidence_2 (B, H/4, W/4))``.
 
     ``dtype`` is the compute dtype of features and convolutions: bf16 on a
-    CUDA device and f32 on the CPU unless given. ``fn`` takes an optional
+    CUDA device and f32 on the CPU unless given. ``n_views`` and ``focal``
+    are the plane scene's (:func:`make_inputs`). ``fn`` takes an optional
     ``cost_volume`` in place of the model's own (``build_cost_volume`` with
     its ``sampling``).
     """
@@ -73,7 +76,7 @@ def entry(device="cuda", dtype: torch.dtype | None = None, batch: int = 1,
     model = CascadeMVSNet(num_groups=num_groups, sampling=sampling)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dtype).eval()
-    imgs, proj_mats = make_inputs(batch, img_wh, device=device)
+    imgs, proj_mats = make_inputs(batch, img_wh, n_views, device, focal)
 
     def fn(model, imgs, proj_mats, cost_volume=None):
         with torch.inference_mode():

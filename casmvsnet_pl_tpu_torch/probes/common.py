@@ -6,16 +6,19 @@ configuration and raises on the first check that fails.
 """
 from __future__ import annotations
 
-import subprocess
 import time
 from dataclasses import dataclass
 
 import torch
 
+from ..utils.flops import PEAK_FLOPS, combine_ops, sample_ops
+from ..utils.profiling import card  # noqa: F401  (the probes' card line)
+
 Tensor = torch.Tensor
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
-F32_FLOPS = 67e12           # H100 SXM float32 rate outside the tensor cores
+# H100 SXM float32 rate outside the tensor cores
+F32_FLOPS = PEAK_FLOPS["NVIDIA H100 80GB HBM3"][torch.float32]
 IMG_WH = (640, 512)         # the default config's images
 
 
@@ -38,14 +41,6 @@ class Result:
     flops: float
     max_abs_err: float
     library_ms: float | None = None
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return smi.stdout.strip().splitlines()[0].strip()
 
 
 def default_levels(img_wh=IMG_WH):
@@ -158,13 +153,6 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def combine_ops(S: int, C: int, groups: int) -> int:
-    """float32 operations of the variance or groupwise combine per (b, d,
-    pixel): per view 3C (variance: s, o^2, sq) or 2C (groupwise), then 4C
-    (variance) or C (groupwise) to finish."""
-    return 3 * C * S + 4 * C if groups == 1 else 2 * C * S + C
-
-
 def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
     """(bytes, float32 operations) of K1, or of K2 with ``backward``, at one
     level: features, projections and depths read once, the volume (K1) or
@@ -175,7 +163,7 @@ def cv_work(B, V, D, h, w, C, groups, itemsize, backward=False):
     S, n = V - 1, B * D * h * w
     nbytes = (B * V * h * w * C * itemsize + B * S * 12 * 4 + n * 4
               + n * (C if groups == 1 else groups) * itemsize)
-    per = S * (29 + 8 * C) + combine_ops(S, C, groups)
+    per = sample_ops(S, C, groups)
     if not backward:
         return nbytes, n * per
     return nbytes + B * V * h * w * C * 4, n * (per + 8 * C * S)

@@ -282,6 +282,29 @@ TinyDTU fit, ``tests/conftest.py::quality_fit``, at 64x64 with n_depths
      not held: from that start the recipe's cloud misses the bound on the
      CPU too, in the JAX package as in the port (``PERF.md`` §6).
 
+The measurement entry points (``bench_torch.py`` and ``scripts/*_torch.py``,
+the ports of ``bench.py`` and the JAX package's profiling scripts), each
+through its ``main`` at its defaults on the card, each its own path whose
+launches are counted:
+ 51. ``bench_torch.main``: the bf16 forward at 640x512x3 for B = 1, 4, 8
+     (16 calls after 2 each), the matmul reference; the last line parses
+     with ``bench.py``'s keys, its value is the best of the three and
+     vs_baseline value / 4.0; B=1's time within 25 % of phase 6's; exactly
+     3 K1 a forward;
+ 52. ``scripts/flops_report_torch.py`` at B = 1, 4, 8: the counted
+     convolutions (``FlopCounterMode`` over a forward through K1) equal the
+     analytic count, 98.02088448 GFLOP at 640x512x3 B=1; GFLOP, TFLOP/s and
+     the share of 989 TFLOP/s printed beside the card's name and power
+     limit; 3 K1 a forward;
+ 53. ``scripts/profile_stages_torch.py`` and ``scripts/profile_bwd_torch.py``
+     at their defaults (B=2, 640x512x3; the stage sum beside the FULL
+     cascade), ``scripts/profile_train_step_torch.py`` with sampling auto and
+     quad, ``scripts/profile_eval_res_torch.py`` (auto, quad; 1152x864x5):
+     every time finite and positive; launches exactly 3 K1 a forward
+     (warp+cost lines and the cascade), 3 K1 + 3 K2 a backward round and a
+     step, 3 #3 + 3 #4 a quad step, 3 K1 / 3 #3 an eval view. No
+     iteration count is cut: the scripts' defaults take ~30 s together.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
@@ -541,8 +564,9 @@ def check_quad_forward(entry) -> dict:
                              sampling="quad")
 
 
-def time_forward(entry, card, label: str = "", **kw) -> None:
-    """bf16 inference forward at B=1 and 4."""
+def time_forward(entry, card, label: str = "", **kw) -> dict:
+    """bf16 inference forward at B=1 and 4; returns {batch: ms}."""
+    times = {}
     for batch in (1, 4):
         fn, args = entry(DEVICE, torch.bfloat16, batch=batch, img_wh=IMG_WH,
                          **kw)
@@ -551,7 +575,9 @@ def time_forward(entry, card, label: str = "", **kw) -> None:
         print(f"timing forward{label} bf16 B={batch} {IMG_WH[0]}x"
               f"{IMG_WH[1]}x3: {ms!r} ms/forward, "
               f"{batch * 1000.0 / ms!r} maps/s [{card}]")
+        times[batch] = ms
         del fn, args
+    return times
 
 
 def check_bwd(kernel_bwd, plain_bwd, inputs2, img_wh=None) -> float:
@@ -2948,6 +2974,171 @@ def quality_path(card) -> dict:
     return {"quality_fit": fit_counts, **paths}
 
 
+# --- the measurement entry points (phases 51-53) ---------------------------
+
+BENCH_BATCHES = (1, 4, 8)       # bench_torch.SWEEP's
+BENCH_TOL = 0.25                # B=1 against phase 6, relative
+FLOPS_BATCHES = (1, 4, 8)
+CONV_FLOPS_B1 = 98_020_884_480  # the convolutions at 640x512x3, B=1
+WARMUP = 2                      # utils.profiling.device_time's warm-up calls
+# the timed calls of each script: its defaults
+MEASURE_ITERS = {"flops": 16, "stages": 12, "bwd": 8, "train_step": 8,
+                 "eval_res": 8}
+
+
+def script(name: str):
+    """A measurement script of ``scripts/`` as a module."""
+    import importlib
+    scripts = os.path.join(REPO, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def check_times(what: str, times: dict) -> None:
+    """Every time a script returned is finite and positive."""
+    bad = {k: v for k, v in times.items() if not (math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{what}: times not finite and positive {bad}")
+
+
+def bench_phase(card, phase6_ms: float) -> dict:
+    """Phase 51; returns its launches."""
+    import io
+
+    import bench_torch
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = bench_torch.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print("bench_torch:", line)
+    last = json.loads(lines[-1])
+    batches = res["batches"]
+    best = max(r["maps_s"] for r in batches.values())
+    b1 = batches[1]["ms"]
+    print(f"bench_torch phase: batches {sorted(batches)}, ms/forward "
+          + ", ".join(f"B={b} {r['ms']!r} (host {r['host_ms']!r})"
+                      for b, r in batches.items())
+          + f"; B=1 against phase 6's {phase6_ms!r} ms: "
+          f"{b1 / phase6_ms - 1.0!r} (bound {BENCH_TOL}); launches {counts} "
+          f"[{card}]")
+    if tuple(batches) != BENCH_BATCHES:
+        raise AssertionError(f"bench_torch ran batches {tuple(batches)}")
+    if set(last) != {"metric", "value", "unit", "vs_baseline"} or \
+            last["metric"] != "depth_maps_per_sec_per_chip_640x512_3views" \
+            or last["unit"] != "maps/s":
+        raise AssertionError(f"bench_torch's last line {last}")
+    if last["value"] != round(best, 3) or \
+            last["vs_baseline"] != round(best / 4.0, 3):
+        raise AssertionError(f"bench_torch's last line {last}, best {best}")
+    if not abs(b1 / phase6_ms - 1.0) <= BENCH_TOL:
+        raise AssertionError(f"bench_torch B=1 {b1} ms against phase 6's "
+                             f"{phase6_ms} ms")
+    check_times("bench_torch", {b: r["ms"] for b, r in batches.items()})
+    expect_counts(counts, scaled(DEFAULT_FWD, len(batches) * (
+        WARMUP + res["iters"])), "bench_torch")
+    return counts
+
+
+def flops_phase(card) -> dict:
+    """Phase 52; returns its launches."""
+    W, H = IMG_WH
+    n = MEASURE_ITERS["flops"]
+    reset_counts()
+    res = script("flops_report_torch").main(
+        ["--device", DEVICE, "--H", str(H), "--W", str(W), "--iters", str(n),
+         "--batch", *map(str, FLOPS_BATCHES)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # the script raises unless the counted convolutions equal the analytic
+    conv1 = sum(res[1]["conv"].values())
+    print(f"flops phase: convolutions B=1 counted {conv1} = analytic (bound "
+          f"{CONV_FLOPS_B1} +- 1e-6 relative); "
+          + "; ".join(f"B={b} {r['total'] / 1e9!r} GFLOP, {r['ms']!r} ms, "
+                      f"{r.get('tflops')!r} TFLOP/s, {r.get('pct_peak')!r} % "
+                      "of 989 TFLOP/s" for b, r in res.items())
+          + f"; launches {counts} [{card}]")
+    if not abs(conv1 / CONV_FLOPS_B1 - 1.0) <= 1e-6 or any(
+            sum(r["conv"].values()) != b * conv1 for b, r in res.items()):
+        raise AssertionError(f"convolutions {res}")
+    check_times("flops", {b: r["ms"] for b, r in res.items()})
+    expect_counts(counts, scaled(DEFAULT_FWD, len(res) * (1 + WARMUP + n)),
+                  "flops_report_torch")
+    return counts
+
+
+def measured(what: str, run, want: dict) -> tuple:
+    """``run()`` with the launches counted, which must be ``want``;
+    returns (its result, the launches)."""
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"{what}: launches {counts}")
+    expect_counts(counts, want, what)
+    return res, counts
+
+
+def profile_phase(card) -> dict:
+    """Phase 53; returns the launches of each script's run."""
+    W, H = IMG_WH
+    size = ["--device", DEVICE, "--H", str(H), "--W", str(W)]
+    paths = {}
+    n = MEASURE_ITERS["stages"]
+    stages, paths["stages"] = measured(
+        "profile_stages_torch", lambda: script("profile_stages_torch").main(
+            size + ["--iters", str(n)]),
+        scaled(DEFAULT_FWD, 2 * (WARMUP + n)))
+    check_times("profile_stages_torch", stages)
+    full = next(v for k, v in stages.items() if k.startswith("FULL"))
+    print(f"stages B=2 {W}x{H}x3: sum of stages {stages['sum of stages']!r} "
+          f"ms beside the FULL cascade {full!r} ms (sum / full "
+          f"{stages['sum of stages'] / full!r}) [{card}]")
+    n = MEASURE_ITERS["bwd"]
+    bwd, paths["bwd"] = measured(
+        "profile_bwd_torch", lambda: script("profile_bwd_torch").main(
+            size + ["--iters", str(n)]),
+        scaled(DEFAULT_STEP, WARMUP + n))
+    check_times("profile_bwd_torch", bwd)
+    n = MEASURE_ITERS["train_step"]
+    for sampling, want, path in (("auto", DEFAULT_STEP, "train_step"),
+                                 ("quad", QUAD_STEP, "train_step_quad")):
+        step, paths[path] = measured(
+            f"profile_train_step_torch --sampling {sampling}",
+            lambda: script("profile_train_step_torch").main(
+                size + ["--iters", str(n), "--sampling", sampling]),
+            scaled(want, 1 + WARMUP + n))
+        check_times(path, {k: step[k] for k in ("ms", "samples_s")})
+    n = MEASURE_ITERS["eval_res"]
+    EW, EH = EVAL_WH
+    with mock.patch.dict(os.environ, {"ER_ORDER": "auto,quad",
+                                      "ER_ITERS": str(n)}):
+        views, paths["eval_res"] = measured(
+            "profile_eval_res_torch", lambda: script(
+                "profile_eval_res_torch").main(
+                ["--device", DEVICE, "--H", str(EH), "--W", str(EW)]),
+            {**scaled(DEFAULT_FWD, WARMUP + n),
+             **scaled(QUAD_FWD, WARMUP + n)})
+    check_times("profile_eval_res_torch", {s: r["ms"] for s, r in
+                                           views.items()})
+    return paths
+
+
+def measure_path(card, phase6_ms: float) -> dict:
+    """Phases 51-53; returns each entry point's launches."""
+    t0 = time.perf_counter()
+    paths = {"bench": bench_phase(card, phase6_ms), "flops": flops_phase(card)}
+    t52 = time.perf_counter()
+    paths.update(profile_phase(card))
+    t53 = time.perf_counter()
+    print(f"measurement path (phases 51-53): {t53 - t0!r} s wall (51-52: "
+          f"{t52 - t0!r}, 53: {t53 - t52!r}) [{card}]")
+    return paths
+
+
 def kernel_line(name, source, replaces, launches_by_path, main_path,
                 max_err, times, timed, library_ms=None) -> dict:
     """One entry of the kernels' JSON line; ``launches`` is the count of
@@ -2982,7 +3173,7 @@ def main() -> int:
     errs = {"cost_volume_cuda": check_kernel(kernel, plain, inputs)}
     k1.check({kernel.name: kernel}, DEVICE, cases=("eval",))
     paths = {"inference": check_forward(entry, plain)}
-    time_forward(entry, card)
+    fwd_ms = time_forward(entry, card)
     errs["cost_volume_bwd_cuda"] = check_bwd(kbwd, pbwd, inputs2)
     check_train_step(train_entry, plain, DEFAULT_STEP)
     trainer, state, batch, paths["train"] = train_main_path(
@@ -3034,6 +3225,7 @@ def main() -> int:
         paths.update(window_path(entry, train_entry, inputs, inputs2,
                                  eval_work, card))
     paths.update(quality_path(card))
+    paths.update(measure_path(card, fwd_ms[1]))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -3050,7 +3242,8 @@ def main() -> int:
                      "tanks_eval", "bmvs_eval", "demo", "demo_jax",
                      "eval_converted", "window_inference", "window_train",
                      "window_eval", "quality_fit", "quality_fit_jax",
-                     "quality_cloud")
+                     "quality_cloud", "bench", "flops", "stages", "bwd",
+                     "train_step", "train_step_quad", "eval_res")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

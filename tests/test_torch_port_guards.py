@@ -1,6 +1,7 @@
 """Cheap guards on the port: no JAX, PIL, OpenCV or tensorboardX inside it
 or in ``eval_torch.py`` and ``train_torch.py`` (nor msgpack or matplotlib
-in the package, ``convert_ckpt_torch.py`` and ``demo_torch.py``), no CPU
+in the package, ``convert_ckpt_torch.py``, ``demo_torch.py`` and the
+measurement scripts ``bench_torch.py`` and ``scripts/*_torch.py``), no CPU
 fallback on the card path, and its main paths
 (inference and a train step, default and quad configurations, the
 packed-quad warp, and the probes' plain versions) run end to end on the
@@ -36,7 +37,7 @@ def test_package_imports_no_jax_pil_or_cv2():
         "for m in ('opt', 'parallel.dist', 'parallel.sync_bn', "
         "'utils.tensorboard', 'utils.visualization', 'data.jpeg', "
         "'data.blendedmvs', 'data.tanks', 'utils.msgpack', "
-        "'utils.torch_convert', 'utils.profiling'):\n"
+        "'utils.torch_convert', 'utils.profiling', 'utils.flops'):\n"
         "    assert 'casmvsnet_pl_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -294,7 +295,9 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
 
 def _script_imports_nothing_banned(script, banned=BANNED):
     code = (
-        f"import sys, {script}\n"
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        f"import {script}\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{banned!r})\n"
         "assert not bad, bad\n")
@@ -314,6 +317,28 @@ def test_train_torch_imports_no_jax_pil_cv2_or_tensorboardx():
 @pytest.mark.parametrize("script", ["convert_ckpt_torch", "demo_torch"])
 def test_new_scripts_import_no_jax_pil_cv2_msgpack_or_matplotlib(script):
     _script_imports_nothing_banned(script, BANNED_TOO)
+
+
+MEASUREMENT_SCRIPTS = ["bench_torch", "flops_report_torch",
+                       "profile_stages_torch", "profile_bwd_torch",
+                       "profile_train_step_torch", "profile_eval_res_torch"]
+
+
+@pytest.mark.parametrize("script", MEASUREMENT_SCRIPTS)
+def test_measurement_scripts_import_no_jax(script):
+    """bench_torch.py and scripts/*_torch.py: no JAX, PIL, OpenCV,
+    tensorboardX, msgpack or matplotlib, nor the JAX package."""
+    _script_imports_nothing_banned(script, BANNED_TOO)
+
+
+@pytest.mark.parametrize("script", MEASUREMENT_SCRIPTS)
+def test_measurement_scripts_default_to_the_card(script):
+    import importlib
+    scripts = os.path.join(REPO, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    mod = importlib.import_module(script)
+    assert mod.parser().parse_args([]).device == "cuda"
 
 
 def test_demo_torch_fails_without_a_card(tmp_path):
