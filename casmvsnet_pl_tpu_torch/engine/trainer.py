@@ -43,8 +43,8 @@ from ..data.base import unnormalize_image
 from ..data.loader import prefetch_to_device, to_device
 from ..losses import sl1_loss
 from ..metrics import batch_means, metric_sums
-from ..parallel import all_reduce_dict, all_reduce_sum, barrier, rank, \
-    world_size
+from ..parallel import all_reduce_dict, all_reduce_sum, barrier, \
+    check_same_on_ranks, rank, world_size
 from ..utils.checkpoints import (TopKCheckpointManager, load_checkpoint,
                                  save_checkpoint)
 from ..utils.optimizers import (Lookahead, OptimConfig, make_lr_schedule,
@@ -236,6 +236,11 @@ class MVSTrainer:
 
     def validate(self, state: TrainState, val_loader: Iterable,
                  epoch: int = 0, global_step: int = 0) -> dict[str, float]:
+        if self.distributed:
+            # every batch's loss all-reduces its mask count: a rank with
+            # fewer batches would leave the others waiting
+            check_same_on_ranks(len(val_loader), "validation batch counts",
+                                self.device)
         totals: dict[str, Tensor] = {}
         n_batches = 0
         for batch in self._prefetch(val_loader):

@@ -7,14 +7,15 @@ here each rank is a process that holds a replica of the model, takes its
 contiguous rows ``[r*b/N, (r+1)*b/N)`` of every global batch of ``b`` rows,
 and ``DistributedDataParallel`` averages the gradients (the trainer wraps
 the model; BatchNorm statistics and the loss's mask counts are global,
-``parallel/sync_bn.py`` and ``losses.py``). NCCL on CUDA, gloo on the CPU
-or when asked for. Without a process group every helper here is the
-single-process identity: rank 0 of 1.
+``parallel/sync_bn.py`` and ``losses.py``). NCCL on CUDA, one card a
+rank; gloo on the CPU or when asked for, where ranks may share a card.
+Without a process group every helper here is the single-process identity:
+rank 0 of 1.
 
 :func:`spawn` starts N ranks with the ``spawn`` method and a file
 rendezvous in a fresh temporary directory (no fixed TCP port, so
 concurrent runs cannot collide); a rank that raises ends the others, and
-every wait has a timeout.
+every wait has a timeout. CUDA ranks find the kernel library built.
 """
 from __future__ import annotations
 
@@ -37,11 +38,21 @@ def initialize_distributed(rank: int, world_size: int, init_method: str,
                            timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the process group as ``rank`` of ``world_size`` through
     ``init_method`` (``file://...`` or ``env://``). ``backend`` defaults to
-    NCCL on a CUDA ``device`` and gloo otherwise; every collective then
-    fails after ``timeout_s`` instead of hanging."""
+    NCCL on a CUDA ``device`` and gloo otherwise. NCCL raises
+    ``ValueError`` when this rank's index on its host (``LOCAL_RANK``, as
+    torchrun sets it, else ``rank``) has no card of its own: a world may
+    span hosts, so only the local index is held to this host's cards.
+    Every collective fails after ``timeout_s`` instead of hanging."""
     if backend is None:
         backend = "nccl" if device is not None and \
             torch.device(device).type == "cuda" else "gloo"
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if backend == "nccl" and local >= torch.cuda.device_count():
+        raise ValueError(f"NCCL rank {rank} has index {local} on this host "
+                         f"(LOCAL_RANK, else the rank), "
+                         f"{torch.cuda.device_count()} cards visible: NCCL "
+                         f"takes one card a rank (gloo ranks may share a "
+                         f"card: backend='gloo')")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -63,7 +74,8 @@ def world_size() -> int:
 
 def rank_device(rank: int, cpu: bool = False) -> torch.device:
     """The device of ``rank``: the CPU, or card ``rank`` modulo the cards
-    visible (so several ranks may share one card, over gloo), made the
+    visible (so several gloo ranks may share one card; :func:`spawn` and
+    :func:`initialize_distributed` refuse NCCL ranks first), made the
     current device."""
     if cpu:
         return torch.device("cpu")
@@ -118,8 +130,27 @@ def all_reduce_dict(values: dict[str, torch.Tensor]
     return dict(zip(names, summed.unbind()))
 
 
+def check_same_on_ranks(value: int, what: str, device) -> None:
+    """Raise on every rank unless ``value`` is the same on all of them (one
+    all-reduce of ``value`` and ``-value`` with MAX, on ``device``): a
+    rank that ran fewer collectives than the others would hang them."""
+    if not is_distributed():
+        return
+    t = torch.tensor([value, -value], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    high, low = int(t[0]), -int(t[1])
+    if high != low:
+        raise RuntimeError(f"{what} differ across the ranks: {low} to "
+                           f"{high}")
+
+
 def barrier() -> None:
-    if is_distributed():
+    """Wait for every rank (on NCCL, on this rank's current card)."""
+    if not is_distributed():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
         dist.barrier()
 
 
@@ -146,8 +177,25 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, cpu: bool = False,
     threads. ``fn`` and ``args`` must pickle (a function of an importable
     module). Returns when every rank has returned; raises if one raised
     (the others are ended) or, with ``timeout_s``, if they have not all
-    ended by then (all are ended)."""
+    ended by then (all are ended).
+
+    CUDA ranks (``cpu`` false) take NCCL unless ``backend`` says
+    otherwise, and NCCL raises ``ValueError`` here, before any rank
+    starts, when ``world`` outnumbers the cards: NCCL takes one card a
+    rank (two ranks on one card fail with "Duplicate GPU detected").
+    The kernel library is built here before the ranks start, so that each
+    loads it rather than running ``nvcc`` itself."""
     import torch.multiprocessing as mp
+
+    if not cpu:
+        cards = torch.cuda.device_count()
+        if (backend or "nccl") == "nccl" and world > cards:
+            raise ValueError(f"{world} NCCL ranks on this host, {cards} "
+                             f"cards visible: NCCL takes one card a rank "
+                             f"(gloo ranks may share a card: "
+                             f"backend='gloo')")
+        from ..kernels import cost_volume_cuda
+        cost_volume_cuda.build()
 
     tmp = tempfile.mkdtemp(prefix="casmvs_rendezvous_")
     init_method = "file://" + os.path.join(tmp, "store")

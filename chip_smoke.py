@@ -1725,38 +1725,97 @@ def cli_resume(tree: str, dataset_cls) -> None:
         raise AssertionError("warm start loaded the wrong parameters")
 
 
-def step_differences(got: dict, want: dict) -> tuple[float, float]:
-    """(worst gradient leaf relative L2, worst BatchNorm running statistic
-    relative to its buffer's largest value) of two saved steps
-    (``entry.data_parallel_step``); the prob convs' biases, whose exact
-    gradient is 0, against their weights' gradient (as phase 9)."""
+def leaf_differences(got: dict, want: dict) -> tuple[dict, dict]:
+    """Per leaf, of two saved steps (``entry.data_parallel_step``): each
+    gradient's relative L2 difference (the prob convs' biases, whose exact
+    gradient is 0, against their weights' gradient, as phase 9) and each
+    BatchNorm running statistic's max difference relative to its buffer's
+    largest value."""
     g = want["grads"]
 
     def scale(n):
         return g[n.replace("prob.bias", "prob.weight")].double().norm()
 
-    grads = max(((got["grads"][n].double() - g[n].double()).norm()
-                 / scale(n)).item() for n in g)
-    stats = max(((got["buffers"][n].double() - b.double()).abs().max()
+    grads = {n: ((got["grads"][n].double() - g[n].double()).norm()
+                 / scale(n)).item() for n in g}
+    stats = {n: ((got["buffers"][n].double() - b.double()).abs().max()
                  / b.double().abs().max()).item()
-                for n, b in want["buffers"].items()
-                if n.endswith(("running_mean", "running_var")))
+             for n, b in want["buffers"].items()
+             if n.endswith(("running_mean", "running_var"))}
     return grads, stats
 
 
-def dp_step(work: str, card) -> None:
-    """Phase 36: two ranks on the one card (gloo) against one process.
+def step_differences(got: dict, want: dict) -> tuple[float, float]:
+    """(worst gradient leaf, worst BatchNorm statistic) of
+    :func:`leaf_differences`."""
+    grads, stats = leaf_differences(got, want)
+    return max(grads.values()), max(stats.values())
 
-    The gradients are held to the larger of GRAD_REL_TOL and DP_NOISE
-    times the step's own float32 noise: the difference between one
-    process's step and the same step with the batch's rows permuted (the
-    same sums in another order), the worse of two permutations, measured
-    in this run. The step amplifies rounding: on an NVIDIA H100 80GB HBM3
-    that difference read 3.9e-3 relative L2, above GRAD_REL_TOL (and the
-    two ranks' difference 3.5e-3; PERF.md). BatchNorm statistics and the
-    loss keep their fixed bounds."""
+
+def dp_reference(spec: dict, device) -> tuple[dict, list, float]:
+    """One process's f32 step of ``spec`` (``entry.data_parallel_step``) on
+    ``device``, and the same step with the global batch's rows permuted
+    (DP_ORDERS). Returns (the step, (gradients, statistics, loss) of each
+    permutation against it, the gradient bound). The gradients are held to
+    the larger of GRAD_REL_TOL and DP_NOISE times the step's own float32
+    noise: the worse of the two permutations (the same sums in another
+    order), measured in this run. The step amplifies rounding: on an
+    NVIDIA H100 80GB HBM3 that difference read 3.9e-3 relative L2, above
+    GRAD_REL_TOL (and the two ranks' difference 3.5e-3; PERF.md).
+    BatchNorm statistics and the loss keep their fixed bounds."""
     from casmvsnet_pl_tpu_torch.data import collate
     from casmvsnet_pl_tpu_torch.entry import data_parallel_step, plane_sample
+
+    data_parallel_step(0, 1, device, dict(spec, out=spec["out"] + ".one"))
+    one = torch.load(spec["out"] + ".one.0")
+    noise = []
+    for i, order in enumerate(DP_ORDERS):
+        data_parallel_step(0, 1, device, dict(
+            spec, batch=collate([plane_sample(j, spec["img_wh"])
+                                 for j in order]),
+            out=spec["out"] + f".perm{i}"))
+        perm = torch.load(spec["out"] + f".perm{i}.0")
+        noise.append(step_differences(perm, one) + (perm["loss"],))
+    torch.backends.cudnn.deterministic = False
+    return one, noise, max(GRAD_REL_TOL, DP_NOISE * max(n[0] for n in noise))
+
+
+def dp_compare(ranks: list, spec: dict, how: str, spawned: float,
+               reference: tuple, card) -> None:
+    """The ranks' saved steps of ``spec`` against one process's
+    (:func:`dp_reference`): the loss to rtol 1e-5, every gradient leaf and
+    BatchNorm statistic within their bounds, the ranks' gradients equal to
+    the bit and each rank's launches DEFAULT_STEP; ``how`` says where the
+    ranks ran."""
+    one, noise, grad_tol = reference
+    world = len(ranks)
+    worst, stats = step_differences(ranks[0], one)
+    same = all(torch.equal(ranks[0]["grads"][n], r["grads"][n])
+               for r in ranks[1:] for n in one["grads"])
+    W, H = spec["img_wh"]
+    print(f"data-parallel f32 SGD step, {world} ranks {how}, global batch "
+          f"{spec['batch']} at {W}x{H}x3 ({spawned!r} s with the "
+          f"ranks' start): loss {ranks[0]['loss']!r} against one process's "
+          f"{one['loss']!r}; worst gradient leaf relative L2 {worst!r} "
+          f"(bound {grad_tol!r}); BatchNorm statistics max relative "
+          f"{stats!r} (bound {DP_STAT_TOL}); one process with the rows "
+          f"permuted {list(DP_ORDERS)} against it (gradients, statistics, "
+          f"loss): {noise!r}; ranks' gradients equal {same}; launches "
+          + ", ".join(f"rank {r} {x['launches']}" for r, x in
+                      enumerate(ranks))
+          + f", one process {one['launches']} [{card}]")
+    for r in ranks + [one]:
+        expect_counts(r["launches"], DEFAULT_STEP, "data-parallel step")
+    if not abs(ranks[0]["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"]):
+        raise AssertionError("data-parallel loss differs")
+    if not (worst <= grad_tol and stats <= DP_STAT_TOL and same):
+        raise AssertionError("data-parallel step differs from one process")
+
+
+def dp_step(work: str, card) -> None:
+    """Phase 36: two ranks on the one card (gloo) against one process
+    (:func:`dp_reference`, :func:`dp_compare`)."""
+    from casmvsnet_pl_tpu_torch.entry import data_parallel_step
     from casmvsnet_pl_tpu_torch.parallel import spawn
 
     spec = dict(batch=DP_BATCH, img_wh=IMG_WH, n_depths=DP_N_DEPTHS,
@@ -1766,38 +1825,10 @@ def dp_step(work: str, card) -> None:
     spawn(data_parallel_step, 2, (spec,), cpu=DEVICE == "cpu",
           backend="gloo", timeout_s=600, pg_timeout_s=600)
     spawned = time.perf_counter() - t0
-    device = torch.device(DEVICE, 0)
-    data_parallel_step(0, 1, device, dict(spec, out=spec["out"] + ".one"))
-    one = torch.load(spec["out"] + ".one.0")
-    noise = []
-    for i, order in enumerate(DP_ORDERS):
-        data_parallel_step(0, 1, device, dict(
-            spec, batch=collate([plane_sample(j, IMG_WH) for j in order]),
-            out=spec["out"] + f".perm{i}"))
-        perm = torch.load(spec["out"] + f".perm{i}.0")
-        noise.append(step_differences(perm, one) + (perm["loss"],))
-    torch.backends.cudnn.deterministic = False
+    reference = dp_reference(spec, torch.device(DEVICE, 0))
     ranks = [torch.load(f"{spec['out']}.{r}") for r in range(2)]
-    worst, stats = step_differences(ranks[0], one)
-    grad_tol = max(GRAD_REL_TOL, DP_NOISE * max(n[0] for n in noise))
-    same = all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n])
-               for n in one["grads"])
-    print(f"data-parallel f32 SGD step, 2 ranks on one card over gloo, "
-          f"global batch {DP_BATCH} at {IMG_WH[0]}x{IMG_WH[1]}x3 ({spawned!r} "
-          f"s with the ranks' start): loss {ranks[0]['loss']!r} against one "
-          f"process's {one['loss']!r}; worst gradient leaf relative L2 "
-          f"{worst!r} (bound {grad_tol!r}); BatchNorm statistics max "
-          f"relative {stats!r} (bound {DP_STAT_TOL}); one process with the "
-          f"rows permuted {list(DP_ORDERS)} against it (gradients, "
-          f"statistics, loss): {noise!r}; ranks' gradients equal {same}; "
-          f"launches rank 0 {ranks[0]['launches']}, rank 1 "
-          f"{ranks[1]['launches']}, one process {one['launches']} [{card}]")
-    for r in ranks + [one]:
-        expect_counts(r["launches"], DEFAULT_STEP, "data-parallel step")
-    if not abs(ranks[0]["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"]):
-        raise AssertionError("data-parallel loss differs")
-    if not (worst <= grad_tol and stats <= DP_STAT_TOL and same):
-        raise AssertionError("data-parallel step differs from one process")
+    dp_compare(ranks, spec, "on one card over gloo", spawned, reference,
+               card)
 
 
 def cli_path(card, train_entry_ms: float, keep: str | None = None) -> dict:

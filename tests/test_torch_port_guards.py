@@ -1,8 +1,10 @@
 """Cheap guards on the port: no JAX, PIL, OpenCV or tensorboardX inside it
 or in ``eval_torch.py`` and ``train_torch.py`` (nor msgpack or matplotlib
 in the package, ``convert_ckpt_torch.py``, ``demo_torch.py`` and the
-measurement scripts ``bench_torch.py`` and ``scripts/*_torch.py``), no CPU
-fallback on the card path, and its main paths
+measurement scripts ``bench_torch.py`` and ``scripts/*_torch.py``, and the
+data-parallel checks ``multicard_smoke.py`` and
+``scripts/debug_dp_torch.py``), no CPU fallback on the card path, and its
+main paths
 (inference and a train step, default and quad configurations, the
 packed-quad warp, and the probes' plain versions) run end to end on the
 CPU at a small size without launching a kernel."""
@@ -328,6 +330,13 @@ MEASUREMENT_SCRIPTS = ["bench_torch", "flops_report_torch",
 def test_measurement_scripts_import_no_jax(script):
     """bench_torch.py and scripts/*_torch.py: no JAX, PIL, OpenCV,
     tensorboardX, msgpack or matplotlib, nor the JAX package."""
+    _script_imports_nothing_banned(script, BANNED_TOO)
+
+
+@pytest.mark.parametrize("script", ["multicard_smoke", "debug_dp_torch"])
+def test_data_parallel_scripts_import_no_jax(script):
+    """multicard_smoke.py and scripts/debug_dp_torch.py: no JAX, flax or the
+    JAX package (nor PIL, OpenCV, tensorboardX, msgpack or matplotlib)."""
     _script_imports_nothing_banned(script, BANNED_TOO)
 
 

@@ -85,7 +85,10 @@ def main(hparams, dataset_cls=None, time_steps: bool = False):
         local = int(os.environ.get("LOCAL_RANK", rank))
         device = rank_device(local, hparams.cpu)
         initialize_distributed(rank, world, "env://", device=device)
-        return train(hparams, dataset_cls, device, time_steps)
+        try:
+            return train(hparams, dataset_cls, device, time_steps)
+        finally:
+            torch.distributed.destroy_process_group()
     world = hparams.num_devices or (
         torch.cuda.device_count() if device.type == "cuda" else 1)
     if hparams.batch_size % world:
@@ -93,13 +96,6 @@ def main(hparams, dataset_cls=None, time_steps: bool = False):
                          f"divisible by the {world} processes")
     if world == 1:
         return train(hparams, dataset_cls, device, time_steps)
-    if device.type == "cuda":
-        if world > torch.cuda.device_count():
-            raise ValueError(f"--num_devices {world}: only "
-                             f"{torch.cuda.device_count()} cards visible")
-        # one build before the ranks start, which then load it
-        from casmvsnet_pl_tpu_torch.kernels import cost_volume_cuda
-        cost_volume_cuda.build()
     spawn(_rank_main, world, (hparams, dataset_cls, time_steps),
           cpu=hparams.cpu)
     return None
