@@ -49,6 +49,7 @@ from ..utils.checkpoints import (TopKCheckpointManager, load_checkpoint,
                                  save_checkpoint)
 from ..utils.optimizers import (Lookahead, OptimConfig, make_lr_schedule,
                                 make_optimizer, set_lr)
+from ..utils.profiling import span
 from ..utils.tensorboard import SummaryWriter
 from ..utils.visualization import visualize_depth, visualize_prob
 
@@ -180,25 +181,34 @@ class MVSTrainer:
         (updated in place) and the step's logs as 0-d tensors, ``lr`` as a
         float."""
         model, optimizer = state.model, state.optimizer
-        model.train()
-        lr = self.schedule(state.step)
-        set_lr(optimizer, lr)
-        with self._autocast():
-            outs = (self.replica or model)(*model_batch_args(batch),
-                                           cost_volume=self.cost_volume)
-        loss = sl1_loss(outs, batch["depths"], batch["masks"], self.levels,
-                        self.distributed)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        state.step += 1
-        means = batch_means(outs["depth_0"].detach(),
-                            batch["depths"]["level_0"],
-                            batch["masks"]["level_0"], self.distributed)
-        # each rank's loss is its share of the global one times N
-        logs = {"train/loss": all_reduce_sum(loss.detach()) / self.world}
-        logs.update({f"train/{k}": v for k, v in means.items()})
-        logs["lr"] = lr
+        with span("trainer.step"):
+            model.train()
+            lr = self.schedule(state.step)
+            with span("trainer.forward"):
+                with self._autocast():
+                    outs = (self.replica or model)(
+                        *model_batch_args(batch),
+                        cost_volume=self.cost_volume)
+                loss = sl1_loss(outs, batch["depths"], batch["masks"],
+                                self.levels, self.distributed)
+            with span("trainer.backward"):
+                # the gradients are cleared here and kept after the step
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("trainer.optimizer"):
+                set_lr(optimizer, lr)
+                optimizer.step()
+            state.step += 1
+            with span("trainer.logs"):
+                means = batch_means(outs["depth_0"].detach(),
+                                    batch["depths"]["level_0"],
+                                    batch["masks"]["level_0"],
+                                    self.distributed)
+                # each rank's loss is its share of the global one times N
+                logs = {"train/loss": all_reduce_sum(loss.detach())
+                        / self.world}
+            logs.update({f"train/{k}": v for k, v in means.items()})
+            logs["lr"] = lr
         return state, logs
 
     def eval_forward(self, state: TrainState, batch: dict) -> dict:

@@ -29,6 +29,7 @@ import torch.nn as nn
 from ..ops.geometry import (depth_regression, get_depth_values,
                             initial_depth_values, resize_bilinear)
 from ..ops.plane_sweep import build_cost_volume
+from ..utils.profiling import span
 from .cost_reg import CostRegNet
 from .feature_net import FeatureNet
 
@@ -49,6 +50,16 @@ def _sum4_confidence(prob: Tensor, depth_values_len: int) -> Tensor:
     idx_f = torch.sum(prob * steps[None, :, None, None], dim=1)
     idx = idx_f.long().clamp(0, D - 1)
     return torch.gather(sum4, 1, idx[:, None])[:, 0]
+
+
+def _on_device(value, dev: torch.device, site: str) -> Tensor:
+    """``value`` (a scalar or (B,)) as float32 on ``dev``. A value not
+    already there is copied from the host, which blocks the host until the
+    card's queue drains: a ``host_sync`` span."""
+    if isinstance(value, Tensor) and value.device == dev:
+        return value.to(torch.float32)
+    with span("host_sync", site=site):
+        return torch.as_tensor(value, dtype=torch.float32, device=dev)
 
 
 class CascadeMVSNet(nn.Module):
@@ -98,32 +109,37 @@ class CascadeMVSNet(nn.Module):
                                             sampling=self.sampling)
         B = proj_mats.shape[0]
         dev = proj_mats.device
-        dmin = torch.as_tensor(init_depth_min, dtype=torch.float32,
-                               device=dev).expand(B)
-        dint = torch.as_tensor(depth_interval, dtype=torch.float32,
-                               device=dev).expand(B)
+        dmin = _on_device(init_depth_min, dev, "from_features.init_depth_min")
+        dint = _on_device(depth_interval, dev, "from_features.depth_interval")
+        dmin, dint = dmin.expand(B), dint.expand(B)
         results: dict[str, Tensor] = {}
         depth_prev = None
         for l in reversed(range(self.levels)):               # 2, 1, 0
-            feats_l = feats[f"level_{l}"]                    # (B, V, h, w, C)
-            h, w = feats_l.shape[2:4]
-            interval_l = dint * self.interval_ratios[l]
-            D = self.n_depths[l]
-            if depth_prev is None:
-                depth_values = initial_depth_values(dmin, interval_l, D, B,
-                                                    h, w, device=dev)
-            else:
-                prev = resize_bilinear(depth_prev.detach()[..., None],
-                                       (h, w))[..., 0]
-                depth_values = get_depth_values(prev, D, interval_l)
-            volume = cost_volume(feats_l, proj_mats[:, :, l].contiguous(),
-                                 depth_values, self.num_groups)
-            cost = getattr(self, f"cost_reg_{l}")(volume)    # (B, D, h, w)
-            prob = torch.softmax(cost.float(), dim=1)
-            depth_l = depth_regression(prob, depth_values)
-            results[f"depth_{l}"] = depth_l
-            results[f"confidence_{l}"] = _sum4_confidence(prob, D)
-            depth_prev = depth_l
+            with span("cascade.level", level=l):
+                feats_l = feats[f"level_{l}"]                # (B, V, h, w, C)
+                h, w = feats_l.shape[2:4]
+                interval_l = dint * self.interval_ratios[l]
+                D = self.n_depths[l]
+                with span("cascade.hypotheses"):
+                    if depth_prev is None:
+                        depth_values = initial_depth_values(
+                            dmin, interval_l, D, B, h, w, device=dev)
+                    else:
+                        prev = resize_bilinear(depth_prev.detach()[..., None],
+                                               (h, w))[..., 0]
+                        depth_values = get_depth_values(prev, D, interval_l)
+                with span("cascade.cost_volume"):
+                    volume = cost_volume(feats_l,
+                                         proj_mats[:, :, l].contiguous(),
+                                         depth_values, self.num_groups)
+                with span("cascade.cost_reg"):
+                    cost = getattr(self, f"cost_reg_{l}")(volume)
+                with span("cascade.regression"):
+                    prob = torch.softmax(cost.float(), dim=1)  # (B, D, h, w)
+                    depth_l = depth_regression(prob, depth_values)
+                    results[f"depth_{l}"] = depth_l
+                    results[f"confidence_{l}"] = _sum4_confidence(prob, D)
+                depth_prev = depth_l
         return results
 
     def forward(self, imgs: Tensor, proj_mats: Tensor, init_depth_min,
@@ -133,6 +149,7 @@ class CascadeMVSNet(nn.Module):
         (B, V-1, levels, 3, 4), level index fine -> coarse.
         Returns {'depth_l': (B, h_l, w_l), 'confidence_l': ...}, l = 0, 1, 2.
         """
-        feats = self.features(imgs)
+        with span("cascade.features"):
+            feats = self.features(imgs)
         return self.from_features(feats, proj_mats, init_depth_min,
                                   depth_interval, cost_volume)

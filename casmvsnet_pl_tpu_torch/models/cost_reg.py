@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import span
 from .blocks import ConvBnAct, ConvTransposeBnAct3D
 
 
@@ -43,4 +44,5 @@ class CostRegNet(nn.Module):
         c = c4 + self.conv7(c)
         c = c2 + self.conv9(c)
         c = c0 + self.conv11(c)
-        return self.prob(c)[:, 0]
+        with span("cascade.prob"):
+            return self.prob(c)[:, 0]

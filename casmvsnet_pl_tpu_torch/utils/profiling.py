@@ -22,6 +22,15 @@ and the measurement scripts' timer, the counterpart of
     silent fall back to the CPU;
   - :func:`card`: the card's name and power limit, as nvidia-smi gives
     them, to stand beside every number.
+
+and the spans inside the program (:class:`SpanRecorder`, one per process,
+:data:`RECORDER`):
+
+  - :func:`span`: a named stretch of the program (the cascade's stages,
+    the trainer's phases, the host's syncs), on only while a
+    ``torch.profiler`` session records;
+  - :func:`span_summary`: each span name's count, device, self device and
+    host seconds over the last profiler session.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import subprocess
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _sync(what=True) -> None:
@@ -225,3 +235,153 @@ def device_time(fn, *args, iters: int = 16, warmup: int = 2,
               f"ms {min(host) * 1e3!r} / {statistics.median(host) * 1e3!r} "
               f"/ {max(host) * 1e3!r}", flush=True)
     return statistics.median(dev)
+
+
+# -- spans inside the program ------------------------------------------------
+
+_NULL = contextlib.nullcontext()
+_sessions = [0]         # profiler sessions started in this process
+
+
+def _count_sessions() -> None:
+    """Count the profiler sessions of the process in ``_sessions``. torch
+    has no public hook for a session's start; every session
+    (``torch.profiler.profile``, a schedule's active phase,
+    ``torch.autograd.profiler.profile``) calls
+    ``torch.autograd.profiler._run_on_profiler_start`` as it starts, which
+    is wrapped here once."""
+    start = _autograd_profiler._run_on_profiler_start
+    if getattr(start, "counts_sessions", False):
+        return
+
+    def counted():
+        _sessions[0] += 1
+        start()
+
+    counted.counts_sessions = True
+    _autograd_profiler._run_on_profiler_start = counted
+
+
+_count_sessions()
+
+
+class _Span:
+    """One recorded span: ``name``, ``attrs``, the enclosing span
+    (``parent``), a pair of timing CUDA events recorded on the current
+    stream (``events``; None on the CPU) and the host's ``perf_counter``
+    pair (``t0``, ``t1``; ``t1`` None while open)."""
+    __slots__ = ("name", "attrs", "parent", "events", "t0", "t1", "_open",
+                 "_annotation", "_stream")
+
+    def __init__(self, name: str, attrs: dict, open_spans: list,
+                 events=None):
+        self.name, self.attrs, self._open = name, attrs, open_spans
+        self.parent = open_spans[-1] if open_spans else None
+        self.events, self.t0, self.t1 = events, None, None
+
+    def __enter__(self):
+        self._open.append(self)
+        self._annotation = _autograd_profiler.record_function(self.name)
+        self._annotation.__enter__()
+        if self.events is not None:
+            self._stream = torch.cuda.current_stream()
+            self.events[0].record(self._stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(self._stream)
+        self.t1 = time.perf_counter()
+        self._annotation.__exit__(*exc)
+        self._open.pop()
+        return False
+
+    def seconds(self) -> float:
+        """The span's device seconds (its events; the host's clock without
+        them). Its events must have completed."""
+        if self.events is None:
+            return self.t1 - self.t0
+        return self.events[0].elapsed_time(self.events[1]) / 1e3
+
+
+class SpanRecorder:
+    """The spans of one process, kept in memory while a ``torch.profiler``
+    session records (the benchmark's ``--trace 1`` window, :func:`trace`,
+    or an operator's own profiler).
+
+    Off, :meth:`span` returns one shared null context: no allocation of its
+    own, no event, no sync. On, it opens ``record_function(name)``, so the
+    Chrome trace carries the span as a ``user_annotation`` on the host and
+    a ``gpu_user_annotation`` on the card, on the kernels' clock, and keeps
+    the span with a pair of timing CUDA events on the current stream (the
+    host's clock where CUDA is not initialized), a ``perf_counter`` pair
+    and its parent. A span that opens in a new profiler session starts a
+    new record, so the record holds exactly the last traced window. At
+    most ``cap`` spans are kept; the rest still annotate the trace and are
+    counted in ``dropped``. Spans are opened from one thread.
+    """
+
+    def __init__(self, cap: int = 65536):
+        self.cap = cap
+        self.spans: list[_Span] = []
+        self.dropped = 0
+        self.session: int | None = None
+        self._open: list[_Span] = []
+        # timing events, made once and recorded anew in each session: the
+        # n-th span of a session takes the n-th pair (creating events costs
+        # more host time than recording them)
+        self._events: list[torch.cuda.Event] = []
+
+    def span(self, name: str, **attrs):
+        """A context manager over a named stretch of the program; ``attrs``
+        (a level, a site) are kept with the span."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return _NULL
+        if self.session != _sessions[0]:
+            self.session = _sessions[0]
+            self.spans, self.dropped = [], 0
+        if len(self.spans) >= self.cap:
+            self.dropped += 1
+            return _autograd_profiler.record_function(name)
+        events = None
+        if torch.cuda.is_initialized():
+            i = 2 * len(self.spans)
+            while len(self._events) < i + 2:
+                self._events.append(torch.cuda.Event(enable_timing=True))
+            events = self._events[i], self._events[i + 1]
+        s = _Span(name, attrs, self._open, events)
+        self.spans.append(s)
+        return s
+
+    def summary(self) -> dict[str, dict]:
+        """Per span name over the record's closed spans: ``count``,
+        ``device_s``, ``self_device_s`` (each span less its children, which
+        run inside it one after another) and ``host_s``. Waits once for
+        the card; nothing on the program's path reads an event. Empty
+        where no span opened in the last session."""
+        if self.session != _sessions[0]:
+            return {}
+        done = [s for s in self.spans if s.t1 is not None]
+        if any(s.events is not None for s in done):
+            torch.cuda.synchronize()
+        sec = {id(s): s.seconds() for s in done}
+        children: dict[int, float] = {}
+        for s in done:
+            if s.parent is not None:
+                children[id(s.parent)] = children.get(id(s.parent), 0.0) \
+                    + sec[id(s)]
+        out: dict[str, dict] = {}
+        for s in done:
+            d = out.setdefault(s.name, {"count": 0, "device_s": 0.0,
+                                        "self_device_s": 0.0, "host_s": 0.0})
+            d["count"] += 1
+            d["device_s"] += sec[id(s)]
+            d["self_device_s"] += sec[id(s)] - children.get(id(s), 0.0)
+            d["host_s"] += s.t1 - s.t0
+        return out
+
+
+RECORDER = SpanRecorder()
+span = RECORDER.span
+span_summary = RECORDER.summary
