@@ -127,18 +127,19 @@ def model(weights: dict[str, torch.Tensor] | None = None,
 
 def _launches() -> dict[str, int]:
     return {n: getattr(kernels, n).launches for n in
-            ("cost_volume_cuda", "cost_volume_bwd_cuda")}
+            ("cost_volume_cuda", "cost_volume_bwd_cuda", "prob_conv_cuda")}
 
 
 def expected_launches(epochs: int, panels: bool) -> dict[str, int]:
-    """K1 and K2 launches of a :func:`quality_fit` on the card: 3 K1 + 3 K2
-    a train step, 3 K1 a val batch (before, each epoch, after) and, with a
+    """Kernel launches of a :func:`quality_fit` on the card: 3 K1 + 3 K2 a
+    train step, 3 K1 a val batch (before, each epoch, after) and, with a
     ``log_dir``, 3 K1 for each epoch's train panel (the val panel reuses its
-    batch's outputs)."""
+    batch's outputs); the ``prob`` conv's kernel as K1, 3 a forward."""
     steps, val = N_TRAIN // BATCH, -(-N_VAL // BATCH)
     forwards = steps * epochs + val * (epochs + 2) + (epochs if panels else 0)
     return {"cost_volume_cuda": 3 * forwards,
-            "cost_volume_bwd_cuda": 3 * steps * epochs}
+            "cost_volume_bwd_cuda": 3 * steps * epochs,
+            "prob_conv_cuda": 3 * forwards}
 
 
 def quality_fit(root: str, device, dtype: torch.dtype,
@@ -149,8 +150,8 @@ def quality_fit(root: str, device, dtype: torch.dtype,
     ``weights`` or the seed's, in compute ``dtype`` on ``device``.
 
     Returns ``before`` and ``after`` (val metrics of the untrained and the
-    fitted model), ``epochs`` (each epoch's val metrics), ``launches`` (K1
-    and K2 during the fit), ``step_ms`` (median wall time of a train step,
+    fitted model), ``epochs`` (each epoch's val metrics), ``launches`` (K1,
+    K2 and the ``prob`` conv's kernel during the fit), ``step_ms`` (median wall time of a train step,
     a sync each, the loader's wait included, from step 3), ``wall_s`` and
     the fitted ``state``."""
     train, val = loaders(root)

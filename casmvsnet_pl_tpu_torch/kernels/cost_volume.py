@@ -3,8 +3,10 @@
 One shared library holds every kernel of ``csrc/``: the two here, the
 quad configuration's cost epilogues, launched from
 ``kernels/cost_epilogue.py``, the weighted 4-tap reduce of the
-packed-quad sampler, launched from ``kernels/tap_reduce.py``, and the
-probes of TPU kernels #9-#13, launched from ``kernels/probes.py``.
+packed-quad sampler, launched from ``kernels/tap_reduce.py``, CostRegNet's
+8 -> 1 ``prob`` convolution (``csrc/prob_conv.cu``, which replaces no TPU
+kernel), launched from ``kernels/prob_conv.py``, and the probes of TPU
+kernels #9-#13, launched from ``kernels/probes.py``.
 
 - K1, ``csrc/cost_volume.cu``: the forward. It replaces the TPU package's
   Pallas patch epilogue (``casmvsnet_pl_tpu/kernels/patch_epilogue.py::

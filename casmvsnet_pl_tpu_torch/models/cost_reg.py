@@ -4,13 +4,15 @@ Counterpart of ``casmvsnet_pl_tpu/models/cost_reg.py::CostRegNet``. The JAX
 model also has a D-folded execution (``CostRegNetFolded``) for the MXU; the
 two share parameters, so this one module serves every cascade level. Names
 follow the reference state dict (``conv0..6``, ``conv7|9|11.{0,1}``,
-``prob``).
+``prob``). The last layer, ``prob``, runs through ``ops/prob_conv.py``:
+a kernel of its own on the card, ``F.conv3d`` on the CPU.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from ..ops.prob_conv import prob_conv
 from ..utils.profiling import span
 from .blocks import ConvBnAct, ConvTransposeBnAct3D
 
@@ -28,6 +30,7 @@ class CostRegNet(nn.Module):
         self.conv7 = ConvTransposeBnAct3D(64, 32)
         self.conv9 = ConvTransposeBnAct3D(32, 16)
         self.conv11 = ConvTransposeBnAct3D(16, 8)
+        # holds the weight and bias of ops.prob_conv.prob_conv
         self.prob = nn.Conv3d(8, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -45,4 +48,4 @@ class CostRegNet(nn.Module):
         c = c2 + self.conv9(c)
         c = c0 + self.conv11(c)
         with span("cascade.prob"):
-            return self.prob(c)[:, 0]
+            return prob_conv(c, self.prob.weight, self.prob.bias)

@@ -8,6 +8,9 @@ must do, so that a share of peak compares implementations:
     ``cost_reg_2``, ``cost_reg_1``, ``cost_reg_0``);
   - :func:`analytic_conv_flops`: the same count from the layer shapes
     alone, with no forward run;
+  - :func:`prob_conv_flops`: the ``prob`` convs' forward, which the
+    counter cannot see on the card (a kernel of the port,
+    ``csrc/prob_conv.cu``), from their shapes;
   - :func:`cost_volume_flops`: the cost volume's float32 operations, which
     the counter cannot see (K1 and K2 are extension calls, and the plain
     version's gathers and sums carry no FLOP formula);
@@ -129,6 +132,18 @@ def analytic_conv_flops(model: nn.Module, img_wh, n_views: int,
             getattr(model, f"cost_reg_{l}"), COST_REG_INPUTS, batch,
             (model.n_depths[l], H >> l, W >> l))
     return out
+
+
+def prob_conv_flops(model: nn.Module, img_wh, batch: int) -> dict[str, int]:
+    """The forward of each level's ``prob`` conv, by top module, from its
+    shape: the share of :func:`analytic_conv_flops` that a count on the
+    card adds to :func:`conv_flops` and :func:`counted_conv_flops`, whose
+    counter does not see the kernel that runs it there (its backward, on
+    cuDNN, it sees)."""
+    W, H = img_wh
+    return {f"cost_reg_{l}": _one_conv(
+        getattr(model, f"cost_reg_{l}").prob, batch,
+        (model.n_depths[l], H >> l, W >> l)) for l in range(model.levels)}
 
 
 def combine_ops(S: int, C: int, groups: int) -> int:

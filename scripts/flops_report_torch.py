@@ -7,9 +7,11 @@ its measured time on one NVIDIA GPU. The port's ``scripts/flops_report.py``.
 Per batch (``--batch``, 1 unless given), at 640x512x3 in bf16 through
 ``entry.entry`` (the default model, K1 for the cost volume): GFLOP per
 forward from ``casmvsnet_pl_tpu_torch/utils/flops.py``, split into the
-convolutions (counted by ``FlopCounterMode`` over one forward and checked
-equal, to the operation, to the count from the layer shapes) and the cost
-volume (its float32 operations, analytic: the counter does not see K1);
+convolutions (counted by ``FlopCounterMode`` over one forward, on the card
+with the ``prob`` convs' forward added from their shapes, since the counter
+does not see their kernel, and checked equal, to the operation, to the
+count from the layer shapes) and the cost volume (its float32 operations,
+analytic: the counter does not see K1);
 ms per forward (``utils.profiling.device_time``); maps/s; TFLOP/s; its
 share of the card's published bf16 dense peak (``utils.flops.peak_flops``)
 and of a 4096^3 bf16 ``torch.matmul`` measured in the same run, beside the
@@ -37,7 +39,7 @@ from casmvsnet_pl_tpu_torch.entry import (DEPTH_INTERVAL, DEPTH_MIN,  # noqa: E4
                                           entry)
 from casmvsnet_pl_tpu_torch.utils.flops import (analytic_conv_flops,  # noqa: E402
                                                 conv_flops, forward_flops,
-                                                peak_flops)
+                                                peak_flops, prob_conv_flops)
 from casmvsnet_pl_tpu_torch.utils.profiling import (card, device_time,  # noqa: E402
                                                     measurement_device)
 
@@ -61,6 +63,9 @@ def report(batch: int, img_wh, iters: int, device, peak, matmul) -> dict:
     fn, args = entry(device, batch=batch, img_wh=img_wh)
     model, imgs, proj = args
     counted = conv_flops(model, imgs, proj, DEPTH_MIN, DEPTH_INTERVAL)
+    if device.type == "cuda":
+        for k, n in prob_conv_flops(model, img_wh, batch).items():
+            counted[k] += n
     analytic = analytic_conv_flops(model, img_wh, N_VIEWS, batch)
     if counted != analytic:
         raise AssertionError(f"counted convolutions {counted} differ from "

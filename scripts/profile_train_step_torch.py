@@ -9,8 +9,9 @@ The port's ``scripts/profile_train_step.py``.
 float32 parameters on the card, f32 on the CPU), ``--sampling`` the cost
 volume's route: "auto" (K1 forward, K2 backward), "quad" (the cost
 epilogue kernels #3/#4) or "window". The first step runs under
-``FlopCounterMode`` for the step's convolutions, forward and backward;
-then ``utils.profiling.device_time`` times ``trainer.train_step`` (CUDA
+``FlopCounterMode`` for the step's convolutions, forward and backward (on
+the card with the ``prob`` convs' forward added from their shapes: the
+counter does not see their kernel); then ``utils.profiling.device_time`` times ``trainer.train_step`` (CUDA
 events, median of ``--iters`` steps after 2) with the card's peak memory
 over them (``device_memory_stats``). Prints the JAX script's line (ms a
 step, samples/s), then GFLOP a step (the counted convolutions and the
@@ -33,7 +34,7 @@ from casmvsnet_pl_tpu_torch.entry import train_entry  # noqa: E402
 from casmvsnet_pl_tpu_torch.models.cascade import FEATURE_CHANNELS  # noqa: E402
 from casmvsnet_pl_tpu_torch.utils.flops import (cost_volume_flops,  # noqa: E402
                                                 counted_conv_flops,
-                                                peak_flops)
+                                                peak_flops, prob_conv_flops)
 from casmvsnet_pl_tpu_torch.utils.profiling import (  # noqa: E402
     card, device_memory_stats, device_time, measurement_device)
 
@@ -63,6 +64,9 @@ def main(argv=None) -> dict:
                                         sampling=args.sampling)
     model = state.model
     conv = counted_conv_flops(model, trainer.train_step, state, batch)
+    if device.type == "cuda":     # the prob convs' forward kernel
+        for k, n in prob_conv_flops(model, img_wh, B).items():
+            conv[k] += n
     cv = cost_volume_flops(model.n_depths, FEATURE_CHANNELS, img_wh, V, B,
                            model.num_groups, backward=True)
     if device.type == "cuda":

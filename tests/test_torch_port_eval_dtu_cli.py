@@ -9,7 +9,8 @@ through their fallback) and must write the same JSON, within 1e-12
 relative.
 
 The rehearsal runs phases 49-50 with the kernels' plain versions standing
-in for K1/K2 (each counts its launches, as the wrappers do) and a 1-epoch
+in for K1/K2 and the ``prob`` conv's kernel (each counts its launches, as
+the wrappers do) and a 1-epoch
 fit in f32: the exact launch counts, the CPU reference against the stubbed
 "card" fit, the checkpoints and events, the eval of the fitted model and
 the scoring subprocess. A 1-epoch fit does not reach the 4-epoch bar (its
@@ -33,8 +34,10 @@ from casmvsnet_pl_tpu_torch.engine import convergence
 from casmvsnet_pl_tpu_torch.fusion import write_ply
 from casmvsnet_pl_tpu_torch.kernels.cost_volume import (CostVolumeBwdKernel,
                                                         CostVolumeKernel)
-from casmvsnet_pl_tpu_torch.models import cascade
+from casmvsnet_pl_tpu_torch.kernels.prob_conv import ProbConvKernel
+from casmvsnet_pl_tpu_torch.models import cascade, cost_reg
 from casmvsnet_pl_tpu_torch.ops import plane_sweep
+from casmvsnet_pl_tpu_torch.ops import prob_conv as prob_conv_op
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL_TOL = 1e-12
@@ -128,10 +131,17 @@ def _kernel_route(feats, proj_mats, depth_values, groups=1, sampling="auto"):
                                          groups)
 
 
+def _prob_conv_route(x, weight, bias):
+    """``prob_conv``'s card route on the CPU: its autograd Function, whose
+    wrapper here runs the plain version."""
+    return prob_conv_op._ProbConv.apply(x, weight, bias)
+
+
 def test_chip_smoke_quality_phases_rehearse_on_cpu(monkeypatch, capsys):
     """Phases 49-50 end to end on the CPU: a 1-epoch fit in f32 (one seed
-    of the spread), K1/K2 stubbed by their plain versions with launch
-    counts, the eval and scoring of the fitted model."""
+    of the spread), K1/K2 and the prob conv's kernel stubbed by their plain
+    versions with launch counts, the eval and scoring of the fitted
+    model."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     for name, value in (("DEVICE", "cpu"), ("QUALITY_EPOCHS", 1),
@@ -152,6 +162,9 @@ def test_chip_smoke_quality_phases_rehearse_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(CostVolumeBwdKernel, "__call__",
                         _counting(plane_sweep.plain_cost_volume_bwd))
     monkeypatch.setattr(cascade, "build_cost_volume", _kernel_route)
+    monkeypatch.setattr(ProbConvKernel, "__call__",
+                        _counting(prob_conv_op.plain_prob_conv))
+    monkeypatch.setattr(cost_reg, "prob_conv", _prob_conv_route)
     cwd = os.getcwd()
     try:
         paths = chip_smoke.quality_path("cpu rehearsal")
@@ -163,10 +176,13 @@ def test_chip_smoke_quality_phases_rehearse_on_cpu(monkeypatch, capsys):
     none = {n: 0 for n in chip_smoke.all_kernels()}
     assert paths == {
         "quality_fit": {**none, "cost_volume_cuda": 3 * (8 + 3 * 3 + 1),
-                        "cost_volume_bwd_cuda": 3 * 8},
+                        "cost_volume_bwd_cuda": 3 * 8,
+                        "prob_conv_cuda": 3 * (8 + 3 * 3 + 1)},
         "quality_fit_jax": {**none, "cost_volume_cuda": 3 * (8 + 3 * 3),
-                            "cost_volume_bwd_cuda": 3 * 8},
-        "quality_cloud": {**none, "cost_volume_cuda": 3 * 5}}
+                            "cost_volume_bwd_cuda": 3 * 8,
+                            "prob_conv_cuda": 3 * (8 + 3 * 3)},
+        "quality_cloud": {**none, "cost_volume_cuda": 3 * 5,
+                          "prob_conv_cuda": 3 * 5}}
     out = capsys.readouterr().out
     for what in ("quality fit f32 CPU (one thread, plain cost volume",
                  "quality fit float32 on the card (K1/K2",

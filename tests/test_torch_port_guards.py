@@ -138,7 +138,7 @@ def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     before = _all_launches()
-    assert len(before) == 16
+    assert len(before) == 17
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)
