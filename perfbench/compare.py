@@ -102,6 +102,14 @@ def worse(a: float | None, b: float) -> float:
     return a if not math.isfinite(a) else max(a, b)
 
 
+def launch_gaps(launch_checks: dict[str, tuple[str, int]], before: dict,
+                after: dict, units: int) -> dict[str, float]:
+    """Each launch check's |launches a map or step - expected|: the kernel
+    counter's launches between ``before`` and ``after`` over ``units``."""
+    return {k: abs((after[c] - before[c]) / max(units, 1) - want)
+            for k, (c, want) in launch_checks.items()}
+
+
 def checks(numbers: dict[str, float], limits: dict[str, float],
            cuda: bool = True) -> dict:
     """{name: {"value", "limit"}} in the limits' order; a number missing

@@ -1,20 +1,22 @@
-"""The model's floating-point operations, and the card's published peaks.
+"""Floating-point operations of convolutions and cost volumes, and the
+card's published peaks.
 
 A frozen copy of the port's ``utils/flops.py`` arithmetic (its analytic
 convolution count, which equals ``torch.utils.flop_counter``'s, and its
-cost-volume count), read off the reference model's layers, so that a later
-change to the port cannot move the yardstick:
+cost-volume count), read off a reference model's layers, so that a later
+change to the port cannot move the yardstick; each architecture
+(``architectures/<arch>.py``) sums its own layers with it:
 
   - a convolution counts 2 operations a multiply-add and no bias:
     2 x batch x (output positions) x taps x Cout x Cin; a transposed
     convolution counts its input positions;
   - the cost volume counts its float32 operations per (b, d, pixel): per
     source view 29 for the projection and tap weights and 8C for the taps,
-    then the combine (variance 3CS + 4C, groupwise 2CS + C); the backward
-    adds 8CS for the scatter;
+    then the combine of the configuration's ``cost_volume`` (variance
+    3CS + 4C, groupwise correlation 2CS + C); the backward adds 8CS for
+    the scatter;
   - a training step counts each convolution three times (forward, input
-    gradient, weight gradient) except the images' convolution, whose input
-    takes no gradient, twice.
+    gradient, weight gradient), one whose input takes no gradient twice.
 """
 from __future__ import annotations
 
@@ -22,23 +24,12 @@ import math
 
 import torch.nn as nn
 
-FEATURE_INPUTS = {
-    "conv0.0.conv": 1, "conv0.1.conv": 1, "conv1.0.conv": 1,
-    "conv1.1.conv": 2, "conv1.2.conv": 2, "conv2.0.conv": 2,
-    "conv2.1.conv": 4, "conv2.2.conv": 4, "toplayer": 4, "lat1": 2,
-    "lat0": 1, "smooth1": 2, "smooth0": 1}
-COST_REG_INPUTS = {
-    "conv0.conv": 1, "conv1.conv": 1, "conv2.conv": 2, "conv3.conv": 2,
-    "conv4.conv": 4, "conv5.conv": 4, "conv6.conv": 8, "conv7.0": 8,
-    "conv9.0": 4, "conv11.0": 2, "prob": 1}
-IMAGE_CONV = "conv0.0.conv"       # FeatureNet's first: no input gradient
-
 # NVIDIA's data sheet, dense rates without sparsity, H100 SXM5 at 700 W
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 F32_FLOPS = 67e12               # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
-_CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)
+CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)
 
 
 def _one_conv(m: nn.Module, batch: int, in_size) -> int:
@@ -52,59 +43,40 @@ def _one_conv(m: nn.Module, batch: int, in_size) -> int:
     return 2 * batch * math.prod(positions) * math.prod(k) * w[0] * w[1]
 
 
-def _net(net: nn.Module, inputs: dict, batch: int, size, train: bool) -> int:
+def net_flops(net: nn.Module, inputs: dict[str, int], batch: int, size,
+              train: bool, no_input_grad=()) -> int:
+    """The convolutions of ``net`` at ``batch`` inputs of ``size``, each
+    convolution's input at ``size`` over its stride in ``inputs`` (by
+    module name; a convolution missing from the table raises);
+    ``no_input_grad`` names those whose input takes no gradient."""
     total = 0
     for name, m in net.named_modules():
-        if isinstance(m, _CONVS):
+        if isinstance(m, CONVS):
             n = _one_conv(m, batch, [s // inputs[name] for s in size])
-            times = 1 if not train else (2 if name == IMAGE_CONV and
-                                         inputs is FEATURE_INPUTS else 3)
+            times = 1 if not train else (2 if name in no_input_grad else 3)
             total += n * times
     return total
 
 
-def conv_flops(model: nn.Module, img_wh, n_views: int, batch: int,
-               train: bool = False) -> int:
-    """The convolutions of one forward (``train``: forward and backward) of
-    a reference ``CascadeMVSNet`` at ``batch`` scenes of ``n_views`` images
-    of ``img_wh``."""
-    W, H = img_wh
-    total = _net(model.feature, FEATURE_INPUTS, batch * n_views, (H, W),
-                 train)
-    for l in range(model.levels):
-        total += _net(getattr(model, f"cost_reg_{l}"), COST_REG_INPUTS,
-                      batch, (model.n_depths[l], H >> l, W >> l), train)
-    return total
+def combine_ops(S: int, C: int, cost_volume: str) -> int:
+    return {"variance": 3 * C * S + 4 * C,
+            "groupwise": 2 * C * S + C}[cost_volume]
 
 
-def combine_ops(S: int, C: int, groups: int) -> int:
-    return 3 * C * S + 4 * C if groups == 1 else 2 * C * S + C
-
-
-def sample_ops(S: int, C: int, groups: int) -> int:
-    return S * (29 + 8 * C) + combine_ops(S, C, groups)
+def sample_ops(S: int, C: int, cost_volume: str) -> int:
+    return S * (29 + 8 * C) + combine_ops(S, C, cost_volume)
 
 
 def cost_volume_flops(n_depths, channels, img_wh, n_views: int, batch: int,
-                      groups: int = 1, backward: bool = False) -> int:
+                      cost_volume: str, backward: bool = False) -> int:
     """float32 operations of the cascade's cost volumes (fine to coarse)."""
     W, H = img_wh
     S = n_views - 1
     total = 0
     for l, (D, C) in enumerate(zip(n_depths, channels)):
-        per = sample_ops(S, C, groups) + (8 * C * S if backward else 0)
+        per = sample_ops(S, C, cost_volume) + (8 * C * S if backward else 0)
         total += batch * D * (H >> l) * (W >> l) * per
     return total
-
-
-def model_flops(model: nn.Module, config: dict, img_wh, n_views: int,
-                batch: int, train: bool = False) -> int:
-    """Convolutions plus cost volumes of one forward (``train``: one
-    training step) at ``batch`` scenes."""
-    return conv_flops(model, img_wh, n_views, batch, train) + \
-        cost_volume_flops(config["n_depths"], config["feature_channels"],
-                          img_wh, n_views, batch, config["num_groups"],
-                          backward=train)
 
 
 def peak_bf16(card: str) -> float | None:

@@ -66,6 +66,13 @@ def traffic_kind(kind: str):
     return importlib.import_module(f"perfbench.traffic.{kind}")
 
 
+def architecture(config: dict):
+    """The module ``architectures/<arch>.py`` of the configuration's
+    ``arch`` (absent: ``casmvsnet``)."""
+    name = config.get("arch", "casmvsnet")
+    return importlib.import_module(f"perfbench.architectures.{name}")
+
+
 def benchmark() -> dict:
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         return json.load(f)

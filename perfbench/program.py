@@ -1,59 +1,47 @@
 """The system under test, built from a configuration and the seed's weights.
 
 This module is the benchmark's only door into the port
-(``casmvsnet_pl_tpu_torch``): the model, the eval call as
+(``casmvsnet_pl_tpu_torch``): the model (by the configuration's
+architecture, ``architectures/<arch>.py``), the eval call as
 ``eval_torch.py::Predictor`` makes it, and the trainer as
 ``entry.py::train_entry`` builds it. The port is imported inside the
 functions, so that importing the harness loads none of it.
 
 The weights are the benchmark's: one draw on the device from the seed
 (:func:`draw_weights`), handed to the program and, kept aside, to the
-reference. Convolution weights are Kaiming-normal (deviation
-sqrt(2 / fan_in), fan_in the input channels times the taps), as trained
-networks keep their activations at unit scale; biases are zero, BatchNorm
-is the identity (weight 1, bias 0, running mean 0, variance 1).
+reference. The architecture names the parameters drawn and their
+deviations; every other entry keeps the value the reference is built with.
 """
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.nn as nn
 
-from perfbench.reference.model import CascadeMVSNet as RefModel
-from perfbench.reference.model import QConvTranspose3d
+from perfbench.harness import architecture
 
 
 def draw_weights(config: dict, seed: int, device) -> dict[str, torch.Tensor]:
     """The state dict (reference names, float32, on ``device``) of the
-    seed's weights: every convolution weight from one normal draw."""
-    ref = RefModel(config)
+    seed's weights: the architecture's drawn parameters, in its order, from
+    one normal draw, each times its deviation."""
+    arch = architecture(config)
+    ref = arch.reference(config)
     state = {k: v.to(device) for k, v in ref.state_dict().items()}
-    convs = [(name, m) for name, m in ref.named_modules()
-             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d))]
-    total = sum(m.weight.numel() for _, m in convs)
+    drawn = arch.drawn(ref)
+    total = sum(state[key].numel() for key, _ in drawn)
     gen = torch.Generator(device=device).manual_seed(int(seed) % 2 ** 63)
     z = torch.randn(total, generator=gen, device=device)
     at = 0
-    for name, m in convs:
-        w = state[f"{name}.weight"]
-        cin = w.shape[0] if isinstance(m, QConvTranspose3d) else w.shape[1]
-        fan_in = cin * math.prod(m.kernel_size)
-        w.copy_(z[at:at + w.numel()].view_as(w) * math.sqrt(2.0 / fan_in))
+    for key, deviation in drawn:
+        w = state[key]
+        w.copy_(z[at:at + w.numel()].view_as(w) * deviation)
         at += w.numel()
     return state
 
 
 def port_model(config: dict, weights: dict, device, dtype=None):
-    """The port's ``CascadeMVSNet`` of ``config`` with ``weights``, on
-    ``device`` (its parameters in ``dtype`` if given)."""
-    from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
-    model = CascadeMVSNet(n_depths=tuple(config["n_depths"]),
-                          interval_ratios=tuple(config["interval_ratios"]),
-                          num_groups=config["num_groups"], sampling="auto")
-    model = model.to(device)
-    model.load_state_dict(weights, strict=True)
-    return model.to(dtype=dtype)
+    """The port's model of ``config`` with ``weights``, on ``device`` (its
+    parameters in ``dtype`` if given)."""
+    return architecture(config).port_model(config, weights, device, dtype)
 
 
 def predictor(config: dict, weights: dict, device):

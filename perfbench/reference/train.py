@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .model import CascadeMVSNet
+from perfbench.harness import architecture
 
 Tensor = torch.Tensor
 BETAS = (0.9, 0.999)
@@ -55,13 +55,14 @@ class Adam:
 
 def train_steps(config: dict, weights: dict, batches: list[dict],
                 quant: str | None = None) -> dict:
-    """Run the reference's training steps from ``weights`` over
-    ``batches`` (one step each). Returns ``losses`` (one float a step),
+    """Run the training steps of the reference that the configuration's
+    architecture builds, from ``weights`` over ``batches`` (one step
+    each). Returns ``losses`` (one float a step),
     ``grads`` (the first step's gradients as Adam took them, by parameter
     name), ``raw_grads`` (the first step's loss gradients, by name) and
     ``change`` (the parameters after the last step minus ``weights``)."""
     device = next(iter(weights.values())).device
-    model = CascadeMVSNet(config).to(device)
+    model = architecture(config).reference(config).to(device)
     model.load_state_dict(weights, strict=True)
     model.set_quant(quant)
     model.train()

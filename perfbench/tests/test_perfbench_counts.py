@@ -9,8 +9,7 @@ import torch
 
 from perfbench import program, scenes
 from perfbench.counts import flops, roofline
-from perfbench.harness import load_json
-from perfbench.reference.model import CascadeMVSNet
+from perfbench.harness import architecture, load_json
 
 
 @pytest.mark.parametrize("name", ("casmvsnet", "casmvsnet_gwc8"))
@@ -21,8 +20,7 @@ def test_forward_flops_match_the_port(name, wh, views, batch):
     cfg = load_json("configs", f"{name}.json")
     port = program.port_model(cfg, program.draw_weights(cfg, 0, "cpu"), "cpu")
     want = forward_flops(port, wh, views, batch)["total"]
-    got = flops.model_flops(CascadeMVSNet(cfg), cfg, wh, views,
-                            batch)
+    got = architecture(cfg).flops(cfg, wh, views, batch)
     assert got == want
 
 
@@ -38,19 +36,20 @@ def test_train_flops_match_the_counter(name):
                                   b).values())
     cv = cost_volume_flops(cfg["n_depths"], cfg["feature_channels"],
                            (64, 64), 3, 2, cfg["num_groups"], backward=True)
-    got = flops.model_flops(CascadeMVSNet(cfg), cfg, (64, 64), 3,
-                            2, train=True)
+    got = architecture(cfg).flops(cfg, (64, 64), 3, 2, train=True)
     assert got == conv + cv
 
 
 @pytest.mark.parametrize("backward", (False, True))
-@pytest.mark.parametrize("groups", (1, 8))
-def test_cv_work_matches_the_probes(backward, groups):
+@pytest.mark.parametrize("kind,groups", (("variance", 1), ("groupwise", 8)))
+def test_cv_work_matches_the_probes(backward, kind, groups):
+    """The probes read variance from G = 1: the same numbers for the two
+    published cost volumes."""
     from casmvsnet_pl_tpu_torch.probes.common import bound, cv_work
     for args in [(2, 3, 48, 128, 160, 32), (1, 5, 8, 864, 1152, 8),
                  (2, 3, 32, 256, 320, 16)]:
         want = cv_work(*args, groups, 2, backward)
-        assert roofline.cv_work(*args, groups, 2, backward) == want
+        assert roofline.cv_work(*args, kind, groups, 2, backward) == want
         assert roofline.bound_s(*want) == pytest.approx(
             bound(*want)[0] * 1e-3, rel=1e-12)
 

@@ -5,7 +5,12 @@ of a pool staged on the device in set-up (``pool`` scenes of ``n_views``
 images at ``img_wh``, focal ``focal``), followed by its ``depth_0`` and
 ``confidence_2`` copied to the host, as ``eval_torch.py`` holds them before
 it writes its PFMs. A map's latency runs from the forward's call to its
-maps on the host.
+maps on the host. The loop drops each map's host copy before the next map
+starts, and keeps the maps it samples for the check as copies in buffers
+made in set-up, as a loop that writes each map and drops it would: a host
+copy held across the next map sends the next copy to another block, which
+made maps slower and their tail unsteady from run to run, by the host's
+memory and not by the forward.
 
 End-to-end: ``maps_per_s`` (maps finished over the window), ``map_ms_p95``
 (the 95th percentile of every map's latency), ``peak_mem_gib``
@@ -16,7 +21,8 @@ End-to-end: ``maps_per_s`` (maps finished over the window), ``map_ms_p95``
 always) against the plain reference's maps of the same scenes in float32,
 in units of the distance that bf16 rounding puts between the reference's
 own maps, by the mean and by the depth's 99th percentile
-(``compare.map_numbers``); and K1's launches, three a map.
+(``compare.map_numbers``); and the architecture's launch checks (K1's
+launches, three a map), a map's launches over the window.
 """
 from __future__ import annotations
 
@@ -27,8 +33,7 @@ import time
 import torch
 
 from perfbench import compare, faults, program, scenes, trace
-from perfbench.harness import Ctx, GIB, Phases, result
-from perfbench.reference.model import CascadeMVSNet as RefModel
+from perfbench.harness import Ctx, GIB, Phases, architecture, result
 from perfbench.reference.model import float32_exact
 
 
@@ -56,21 +61,21 @@ def _one(ctx: Ctx, seed: int) -> dict:
     dmin, dint = float(cfg["init_depth_min"]), float(cfg["depth_interval"])
     pick = random.Random(seed)
     kept: list[tuple[int, torch.Tensor, torch.Tensor]] = []
-    last: list[tuple[int, torch.Tensor, torch.Tensor]] = []
     lat: list[float] = []
 
-    def one_map(i: int, keep: bool) -> None:
+    def one_map(i: int) -> tuple[torch.Tensor, torch.Tensor]:
         b = pool[i % P]
         t = time.perf_counter()
         depth, conf = predict(b["imgs"], b["proj_mats"], dmin, dint)
         depth, conf = depth[0].float().cpu(), conf[0].float().cpu()
         lat.append(time.perf_counter() - t)
-        last[:] = [(i % P, depth, conf)]
-        if keep:
-            kept.append(last[0])
+        return depth, conf
 
     for i in range(mix["warmup"]):
-        one_map(i, False)
+        depth, conf = one_map(i)
+    slots = [(torch.zeros_like(depth), torch.zeros_like(conf))
+             for _ in range(mix["check_max"] - 1)]
+    del depth, conf
     _sync(device)
     phases.mark("warm-up maps")
     lat.clear()
@@ -81,14 +86,20 @@ def _one(ctx: Ctx, seed: int) -> dict:
     phases.report(setup_s)
 
     def window(limit_s: float | None, units: int | None) -> int:
-        n, t0 = 0, time.perf_counter()
+        n, t0, out, keep = 0, time.perf_counter(), None, False
         while (units is None and time.perf_counter() - t0 < limit_s) or \
                 (units is not None and n < units):
             keep = pick.random() < mix["check_share"] and \
-                len(kept) < mix["check_max"] - 1
-            one_map(n, keep)
+                len(kept) < len(slots)
+            out = None          # the previous map's host copy, dropped
+            out = one_map(n)
+            if keep:
+                depth, conf = slots[len(kept)]
+                kept.append((n % P, depth.copy_(out[0]), conf.copy_(out[1])))
             n += 1
         _sync(device)
+        if n and not keep:              # the last map is always checked
+            kept.append(((n - 1) % P, *out))
         return n
 
     summary = None
@@ -99,18 +110,17 @@ def _one(ctx: Ctx, seed: int) -> dict:
     else:
         n = window(ctx.seconds, None)
     wall = time.perf_counter() - t0
-    if not kept or kept[-1] is not last[0]:
-        kept.append(last[0])
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    k1 = (program.launch_counts()["cost_volume_cuda"]
-          - launches["cost_volume_cuda"]) / max(n, 1)
+    after = program.launch_counts()
     del predict, pool
     if cuda:
         torch.cuda.empty_cache()
 
     numbers = _compare(ctx, seed, weights, kept)
-    if cuda:                        # K1 once a level, no fallback
-        numbers["k1_launch_gap"] = abs(k1 - cfg["levels"])
+    if cuda:
+        numbers.update(compare.launch_gaps(
+            architecture(cfg).launch_checks(cfg, train=False), launches,
+            after, n))
     table = compare.checks(numbers, ctx.cell["limits"], cuda)
     ok = compare.passed(table)
     p95 = statistics.quantiles(lat, n=100, method="inclusive")[94] \
@@ -128,7 +138,7 @@ def _compare(ctx: Ctx, seed: int, weights: dict, kept: list) -> dict:
     rounding (``quant="bf16"``), whose distance from float32 is the yardstick
     of the seed's sensitivity."""
     cfg, mix, device = ctx.config, ctx.mix, ctx.device
-    ref = RefModel(cfg).to(device)
+    ref = architecture(cfg).reference(cfg).to(device)
     ref.load_state_dict(weights, strict=True)
     ref.eval()
     maps: dict[tuple[int, str | None], tuple] = {}

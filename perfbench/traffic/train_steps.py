@@ -17,8 +17,9 @@ card), ``setup_s``.
 ``correct``: the first steps' losses, the first gradient as Adam took it
 (its first moment after one step over 1 - beta1) and the parameters' change
 over those steps, against the plain reference's float32 steps over the same
-(global) batches from the same weights (``compare.py``); and K1's and K2's
-launches, one a level a step each.
+(global) batches from the same weights (``compare.py``); and the
+architecture's launch checks (K1's and K2's launches, one a level a step
+each), a step's launches over the compared steps.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch.distributed as dist
 from torch.distributed import all_reduce as _all_reduce
 
 from perfbench import compare, faults, program, scenes, trace
-from perfbench.harness import Ctx, GIB, Phases, result
+from perfbench.harness import Ctx, GIB, Phases, architecture, result
 from perfbench.reference.model import float32_exact
 from perfbench.reference.train import BETAS, train_steps
 
@@ -142,11 +143,10 @@ def train_run(ctx: Ctx, seed: int, rank: int = 0, world: int = 1,
     with float32_exact():
         ref = train_steps(cfg, weights, batches)
     numbers = compare.train_numbers(losses, grads, change, ref)
-    if cuda:                    # K1 and K2 once a level a step, no fallback
-        for k, name in (("k1", "cost_volume_cuda"),
-                        ("k2", "cost_volume_bwd_cuda")):
-            per = (after[name] - before[name]) / first
-            numbers[f"{k}_launch_gap"] = abs(per - cfg["levels"])
+    if cuda:
+        numbers.update(compare.launch_gaps(
+            architecture(cfg).launch_checks(cfg, train=True), before, after,
+            first))
     table = compare.checks(numbers, ctx.cell["limits"], cuda)
     ok = compare.passed(table)
     return result(
