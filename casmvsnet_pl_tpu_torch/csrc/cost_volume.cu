@@ -175,16 +175,19 @@ __device__ __forceinline__ void store_vals(T* __restrict__ p,
 
 // The sums of one item: kLanes neighbouring lanes, a lane kCh consecutive
 // channels (kM 16-byte chunks), at kDepths consecutive depths.
-// G == 1: variance over the V views. G > 1: groupwise correlation.
-template <typename T, int C, int G>
+// Var: variance over the V views (G == 1). Otherwise the groupwise
+// correlation with G groups, G = 1 included (the mean over all C channels
+// of ref * src, TransMVSNet's one-channel volume).
+template <typename T, int C, int G, bool Var>
 struct Item {
   static_assert(C % G == 0, "groups must divide C");
+  static_assert(!Var || G == 1, "a variance has one group");
   static constexpr int kVec = 16 / sizeof(T);
   static constexpr int kCh = C < 16 ? C : 16;
   static constexpr int kM = kCh / kVec;
   static constexpr int kLanes = C / kCh;
   static constexpr int kDepths = Tune<C>::kDepths;
-  static constexpr bool kVariance = G == 1;
+  static constexpr bool kVariance = Var;
   static constexpr int kPer = C / G;           // channels of a group
   // groupwise: groups a lane holds whole, or lanes a group spans
   static constexpr int kGroups = kPer <= kCh ? kCh / kPer : 1;
@@ -296,13 +299,13 @@ struct Item {
   }
 };
 
-template <typename T, int C, int G>
+template <typename T, int C, int G, bool Var>
 __global__ void __launch_bounds__(kThreads, Tune<C>::kMinBlocks)
     cost_volume_kernel(const T* __restrict__ feats,
                        const float* __restrict__ proj,
                        const float* __restrict__ depth, T* __restrict__ out,
                        int V, int H, int W, int D) {
-  using It = Item<T, C, G>;
+  using It = Item<T, C, G, Var>;
   constexpr int kCh = It::kCh, kM = It::kM, kLanes = It::kLanes;
   constexpr int kDepths = It::kDepths;
   constexpr bool kPhased = Tune<C>::kPhased;
@@ -360,10 +363,10 @@ __global__ void __launch_bounds__(kThreads, Tune<C>::kMinBlocks)
   if (live) it.store(out, b, d0, D, HW, pix, chunk, V);
 }
 
-template <typename T, int C, int G>
+template <typename T, int C, int G, bool Var>
 int launch(const void* feats, const void* proj, const void* depth, void* out,
            int B, int V, int H, int W, int D, cudaStream_t stream) {
-  using It = Item<T, C, G>;
+  using It = Item<T, C, G, Var>;
   // a block: kThreads / 32 warps, kWarpDepths of them along depth
   constexpr int kItems =
       kThreads / 32 / Tune<C>::kWarpDepths * (32 / It::kLanes);
@@ -374,7 +377,7 @@ int launch(const void* feats, const void* proj, const void* depth, void* out,
   if (blocks > 0x7fffffff || dblocks > 65535 || B > 65535) return kBadShape;
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(dblocks), B);
-  cost_volume_kernel<T, C, G><<<grid, kThreads, 0, stream>>>(
+  cost_volume_kernel<T, C, G, Var><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(feats), static_cast<const float*>(proj),
       static_cast<const float*>(depth), static_cast<T*>(out), V, H, W, D);
   return static_cast<int>(cudaGetLastError());
@@ -384,17 +387,29 @@ int launch(const void* feats, const void* proj, const void* depth, void* out,
 
 // feats (B, V, H, W, C) of dtype (0: float32, 1: bfloat16), contiguous and
 // 16-byte aligned; proj (B, V-1, 3, 4) f32; depth (B, D, H, W) f32;
-// out (B, D, H, W, C if G == 1 else G) of the feats dtype.
+// kind 0: the variance (G == 1), out (B, D, H, W, C); kind 1: the groupwise
+// correlation with G groups (1, 2, 4 or 8), out (B, D, H, W, G); out of the
+// feats dtype.
 // Returns 0, a cudaError_t from the launch, or a negative code of this file.
 static int cost_volume_fwd_typed(const void* feats, const void* proj,
                                  const void* depth, void* out, int B, int V,
-                                 int H, int W, int D, int C, int G, int dtype,
-                                 void* stream) {
+                                 int H, int W, int D, int C, int G, int kind,
+                                 int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind != 0 && kind != 1) return cv::kUnsupported;
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
-    return launch<T, decltype(c)::value, decltype(g)::value>(
-        feats, proj, depth, out, B, V, H, W, D, st);
+    constexpr int kC = decltype(c)::value, kG = decltype(g)::value;
+    if (kind == 1) {
+      return launch<T, kC, kG, false>(feats, proj, depth, out, B, V, H, W, D,
+                                      st);
+    }
+    if constexpr (kG == 1) {
+      return launch<T, kC, 1, true>(feats, proj, depth, out, B, V, H, W, D,
+                                    st);
+    } else {
+      return cv::kUnsupported;
+    }
   });
 }
 
@@ -404,7 +419,7 @@ extern "C" int cost_volume_fwd(const int64_t* args) {
 }
 
 extern "C" const char* cost_volume_error_string(int code) {
-  if (code == cv::kUnsupported) return "unsupported (dtype, C, groups)";
+  if (code == cv::kUnsupported) return "unsupported (dtype, C, groups, kind)";
   if (code == cv::kBadShape) return "shape exceeds the launch grid";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -11,7 +11,9 @@ build
 1/2/4, variance cost volume, sampling "auto") on synthetic plane scenes at
 640x512 with 3 views, with weights drawn from a seeded ``torch.Generator``;
 ``sampling`` and ``num_groups`` pick another configuration of the model, as
-``train.py``'s and ``eval.py``'s ``--sampling`` and ``--num_groups`` do.
+``train.py``'s and ``eval.py``'s ``--sampling`` and ``--num_groups`` do;
+``entry``'s ``arch`` builds ``TransMVSNet`` in its place, as
+``eval_torch.py --arch transmvsnet`` does.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch.nn as nn
 from .data.loader import collate
 from .data.synthetic import PlaneScene
 from .engine.trainer import MVSTrainer
-from .models import CascadeMVSNet
+from .models import CascadeMVSNet, build_model
+from .models.transmvsnet import DeformConv2d
 from .parallel import rank, shard_batch, world_size
 from .utils.optimizers import OptimConfig
 
@@ -34,7 +37,9 @@ DEPTH_INTERVAL = 2.65
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """LeCun-normal conv weights (std 1/sqrt(fan_in), as the JAX package's
-    flax convs), zero conv biases; BN keeps its identity statistics."""
+    flax convs), zero conv biases; BN keeps its identity statistics. In
+    TransMVSNet also the deformable convs' and the Linear layers' weights
+    (LayerNorm stays the identity)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
@@ -42,6 +47,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, (DeformConv2d, nn.Linear)):
+                fan_in = math.prod(m.weight.shape[1:])
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
 
 
 def make_inputs(batch: int, img_wh=(640, 512), n_views: int = 3,
@@ -60,7 +68,8 @@ def make_inputs(batch: int, img_wh=(640, 512), n_views: int = 3,
 
 def entry(device="cuda", dtype: torch.dtype | None = None, batch: int = 1,
           img_wh=(640, 512), seed: int = 0, sampling: str = "auto",
-          num_groups: int = 1, n_views: int = 3, focal: float = 600.0):
+          num_groups: int = 1, n_views: int = 3, focal: float = 600.0,
+          arch: str = "casmvsnet"):
     """(fn, args): ``fn(*args)`` runs the inference forward and returns
     ``(depth_0 (B, H, W), confidence_2 (B, H/4, W/4))``.
 
@@ -73,7 +82,7 @@ def entry(device="cuda", dtype: torch.dtype | None = None, batch: int = 1,
     device = torch.device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = CascadeMVSNet(num_groups=num_groups, sampling=sampling)
+    model = build_model(arch, num_groups=num_groups, sampling=sampling)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dtype).eval()
     imgs, proj_mats = make_inputs(batch, img_wh, n_views, device, focal)

@@ -3,6 +3,7 @@ from .cost_epilogue import (groupwise_epilogue_bwd_cuda,  # noqa: F401
                             groupwise_epilogue_cuda, variance_epilogue_bwd_cuda,
                             variance_epilogue_cuda)
 from .cost_volume import cost_volume_bwd_cuda, cost_volume_cuda  # noqa: F401
+from .deform_conv import deform_conv_cuda  # noqa: F401
 from .prob_conv import prob_conv_cuda  # noqa: F401
 from .tap_reduce import tap_reduce_bwd_cuda, tap_reduce_cuda  # noqa: F401
 from .probes import (lane_gather_cuda, lane_prefix_copy_cuda,  # noqa: F401

@@ -54,6 +54,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (8, 16, 32)
 _GROUPS = (1, 2, 4, 8)
+# the combine of K1 by kind of volume: the variance (one group) or the
+# groupwise correlation (G groups, one included)
+KINDS = {"variance": 0, "groupwise": 1}
+
+
+def volume_kind(kind: str | None, groups: int) -> str:
+    """``kind``, or where it is None the kind that ``groups`` alone used to
+    name: the variance at G = 1, the groupwise correlation above. Raise on
+    a kind the kernels do not know or a variance of several groups."""
+    if kind is None:
+        return "variance" if groups == 1 else "groupwise"
+    if kind not in KINDS:
+        raise ValueError(f"unknown cost-volume kind {kind!r} (not in "
+                         f"{list(KINDS)})")
+    if kind == "variance" and groups != 1:
+        raise ValueError(f"a variance volume has one group, got {groups}")
+    return kind
 
 
 def find_nvcc() -> str:
@@ -225,19 +242,24 @@ class CostVolumeKernel(_Kernel):
     """K1, the fused cost-volume forward."""
 
     def __call__(self, feats: Tensor, proj_mats: Tensor,
-                 depth_values: Tensor, groups: int = 1) -> Tensor:
+                 depth_values: Tensor, groups: int = 1,
+                 kind: str | None = None) -> Tensor:
         """feats (B, V, H, W, C) f32|bf16, C in {8, 16, 32};
         proj_mats (B, V-1, 3, 4) f32; depth_values (B, D, H, W) f32;
-        groups 1 (variance) or G in {2, 4, 8} (groupwise).
-        Returns (B, D, H, W, C|G) in the feats dtype, with no autograd
+        ``kind`` "variance" (groups 1) or "groupwise" (G in {1, 2, 4, 8});
+        None: the variance at groups 1, else the groupwise correlation.
+        Returns (B, D, H, W, C) for a variance, (B, D, H, W, G) for a
+        groupwise correlation, in the feats dtype, with no autograd
         graph."""
+        kind = volume_kind(kind, groups)
         dev = _check_inputs(self.name, feats, proj_mats, depth_values, groups)
         B, V, H, W, C = feats.shape
         D = depth_values.shape[1]
-        out = feats.new_empty((B, D, H, W, C if groups == 1 else groups))
+        out = feats.new_empty((B, D, H, W,
+                               C if kind == "variance" else groups))
         self._launch(dev, feats.data_ptr(), proj_mats.data_ptr(),
                      depth_values.data_ptr(), out.data_ptr(), B, V, H, W, D, C,
-                     groups, _DTYPE_CODES[feats.dtype])
+                     groups, KINDS[kind], _DTYPE_CODES[feats.dtype])
         return out
 
 
@@ -247,11 +269,18 @@ class CostVolumeBwdKernel(_Kernel):
 
     def __call__(self, feats: Tensor, proj_mats: Tensor,
                  depth_values: Tensor, grad_out: Tensor,
-                 groups: int = 1) -> Tensor:
+                 groups: int = 1, kind: str | None = None) -> Tensor:
         """Inputs as :meth:`CostVolumeKernel.__call__`, plus grad_out, the
         gradient of its output: (B, D, H, W, C|G) in the feats dtype.
         Returns d feats (B, V, H, W, C) in the feats dtype, accumulated in
-        float32 and cast once."""
+        float32 and cast once. The groupwise correlation with one group
+        (TransMVSNet's volume) has no adjoint here yet: TransMVSNet's
+        training is a later change."""
+        if volume_kind(kind, groups) == "groupwise" and groups == 1:
+            raise NotImplementedError(
+                f"{self.name}: no backward of the one-group correlation "
+                "(TransMVSNet training, with its focal loss and the "
+                "deformable conv's backward, is not ported yet)")
         dev = _check_inputs(self.name, feats, proj_mats, depth_values, groups,
                             grad_out)
         B, V, H, W, C = feats.shape

@@ -105,8 +105,7 @@ class CascadeMVSNet(nn.Module):
         passes another only to compare it with a plain version.
         """
         if cost_volume is None:
-            cost_volume = functools.partial(build_cost_volume,
-                                            sampling=self.sampling)
+            cost_volume = self.default_cost_volume()
         B = proj_mats.shape[0]
         dev = proj_mats.device
         dmin = _on_device(init_depth_min, dev, "from_features.init_depth_min")
@@ -136,11 +135,26 @@ class CascadeMVSNet(nn.Module):
                     cost = getattr(self, f"cost_reg_{l}")(volume)
                 with span("cascade.regression"):
                     prob = torch.softmax(cost.float(), dim=1)  # (B, D, h, w)
-                    depth_l = depth_regression(prob, depth_values)
+                    depth_l, conf_l = self.depth_and_confidence(prob,
+                                                                depth_values)
                     results[f"depth_{l}"] = depth_l
-                    results[f"confidence_{l}"] = _sum4_confidence(prob, D)
+                    results[f"confidence_{l}"] = conf_l
                 depth_prev = depth_l
         return results
+
+    def default_cost_volume(self) -> Callable:
+        """Each level's volume: :func:`build_cost_volume` with the model's
+        ``sampling`` (the variance at one group, else the groupwise
+        correlation)."""
+        return functools.partial(build_cost_volume, sampling=self.sampling)
+
+    def depth_and_confidence(self, prob: Tensor, depth_values: Tensor
+                             ) -> tuple[Tensor, Tensor]:
+        """A level's depth and confidence from its probability volume
+        (B, D, h, w), float32: the soft-argmax over the hypotheses and the
+        4-bin mass around it."""
+        return (depth_regression(prob, depth_values),
+                _sum4_confidence(prob, depth_values.shape[1]))
 
     def forward(self, imgs: Tensor, proj_mats: Tensor, init_depth_min,
                 depth_interval, cost_volume: Callable | None = None

@@ -48,7 +48,8 @@ import warnings
 
 import torch
 
-from ..kernels.cost_volume import cost_volume_bwd_cuda, cost_volume_cuda
+from ..kernels.cost_volume import (cost_volume_bwd_cuda, cost_volume_cuda,
+                                   volume_kind)
 from .cost_epilogue import (groupwise_epilogue, groupwise_epilogue_bwd,
                             plain_groupwise_epilogue, plain_variance_epilogue,
                             variance_epilogue, variance_epilogue_bwd)
@@ -105,21 +106,24 @@ def _source_coords(proj_mats: Tensor, depth_values: Tensor, H: int,
 
 
 def plain_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
-                      groups: int = 1) -> Tensor:
+                      groups: int = 1, kind: str | None = None) -> Tensor:
     """Cost volume from per-view warps, accumulated in float32.
 
     feats: (B, V, H, W, C), reference view first; proj_mats: (B, V-1, 3, 4);
-    depth_values: (B, D, H, W). Returns (B, D, H, W, C) for groups == 1,
-    the variance sum(f^2)/V - (sum(f)/V)^2 with the un-warped reference view
-    included; else (B, D, H, W, G), the mean over each group of C/G
-    consecutive channels of warped * ref, summed over source views and
-    divided by V-1. The result is in the features' dtype.
+    depth_values: (B, D, H, W). ``kind`` "variance" (None at groups == 1):
+    (B, D, H, W, C), the variance sum(f^2)/V - (sum(f)/V)^2 with the
+    un-warped reference view included; "groupwise" (None at groups > 1):
+    (B, D, H, W, G), the mean over each group of C/G consecutive channels of
+    warped * ref, summed over source views and divided by V-1 (G = 1: the
+    mean over all C channels, TransMVSNet's correlation). The result is in
+    the features' dtype.
     """
     B, V, H, W, C = feats.shape
     D = depth_values.shape[1]
+    variance = volume_kind(kind, groups) == "variance"
     f = feats.float()
     ref = f[:, 0].unsqueeze(1)                               # (B, 1, H, W, C)
-    if groups == 1:
+    if variance:
         s = ref.expand(B, D, H, W, C)
         sq = s * s
     else:
@@ -128,7 +132,7 @@ def plain_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
         acc = feats.new_zeros((B, D, H, W, groups), dtype=torch.float32)
     for v, xy in enumerate(_source_coords(proj_mats, depth_values, H, W)):
         o = grid_sample_batched(f[:, v + 1], xy)             # (B, D, H, W, C)
-        if groups == 1:
+        if variance:
             s = s + o
             sq = sq + o * o
         else:
@@ -136,7 +140,7 @@ def plain_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
             acc = acc + prod.sum(-1) * (groups / C)
     # Multiplying by the f32 reciprocal (not dividing) is what the kernel
     # does, and what torch does anyway for a CUDA tensor over a scalar.
-    if groups == 1:
+    if variance:
         m = s * (1.0 / V)
         out = sq * (1.0 / V) - m * m
     else:
@@ -146,7 +150,7 @@ def plain_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
 
 def plain_cost_volume_bwd(feats: Tensor, proj_mats: Tensor,
                           depth_values: Tensor, grad_out: Tensor,
-                          groups: int = 1) -> Tensor:
+                          groups: int = 1, kind: str | None = None) -> Tensor:
     """The gradient of :func:`plain_cost_volume` with respect to feats,
     written out as K2 computes it: recompute the samples o_v, take the
     combine's adjoint, and scatter each source sample's share onto its
@@ -165,7 +169,7 @@ def plain_cost_volume_bwd(feats: Tensor, proj_mats: Tensor,
     coords = _source_coords(proj_mats, depth_values, H, W)
     samples = [grid_sample_batched(f[:, v + 1], xy)
                for v, xy in enumerate(coords)]               # (B, D, H, W, C)
-    if groups == 1:
+    if volume_kind(kind, groups) == "variance":
         s = ref
         for o in samples:
             s = s + o
@@ -192,17 +196,18 @@ class _CostVolume(torch.autograd.Function):
     """K1 forward, K2 backward (CUDA tensors only)."""
 
     @staticmethod
-    def forward(ctx, feats, proj_mats, depth_values, groups):
+    def forward(ctx, feats, proj_mats, depth_values, groups, kind=None):
         ctx.save_for_backward(feats, proj_mats, depth_values)
-        ctx.groups = groups
-        return cost_volume_cuda(feats, proj_mats, depth_values, groups)
+        ctx.groups, ctx.kind = groups, kind
+        return cost_volume_cuda(feats, proj_mats, depth_values, groups, kind)
 
     @staticmethod
     def backward(ctx, grad_out):
         feats, proj_mats, depth_values = ctx.saved_tensors
         d_feats = cost_volume_bwd_cuda(feats, proj_mats, depth_values,
-                                       grad_out.contiguous(), ctx.groups)
-        return d_feats, None, None, None
+                                       grad_out.contiguous(), ctx.groups,
+                                       ctx.kind)
+        return d_feats, None, None, None, None
 
 
 def quad_rows(feats: Tensor, proj_mats: Tensor, depth_values: Tensor
@@ -469,16 +474,18 @@ def _warn_window_once() -> None:
 
 
 def window_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
-                       groups: int, cfg: dict) -> Tensor:
+                       groups: int, cfg: dict, kind: str | None = None
+                       ) -> Tensor:
     """The cost volume of a level in the window mode, combined as the JAX
     ``batched_variance_cost_volume`` / ``batched_groupwise_cost_volume``
     combine it: the reference view first, then the source views in order,
-    sums in float32, cast once. Shapes and result as
+    sums in float32, cast once. Shapes, ``kind`` and result as
     :func:`plain_cost_volume`; differentiable with respect to feats."""
     B, V, H, W, C = feats.shape
     D = depth_values.shape[1]
+    variance = volume_kind(kind, groups) == "variance"
     ref = feats[:, 0].reshape(B, 1, H * W, C).float()
-    if groups == 1:
+    if variance:
         s = ref.expand(B, D, H * W, C)
         sq = s * s
     else:
@@ -487,7 +494,7 @@ def window_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
         acc = feats.new_zeros((B, D, H * W, groups), dtype=torch.float32)
     for v, xy in enumerate(_source_coords(proj_mats, depth_values, H, W)):
         o = window_sample(feats[:, v + 1], xy, cfg)       # (B, D, hw, C)
-        if groups == 1:
+        if variance:
             s = s + o
             sq = sq + o * o
         else:
@@ -496,7 +503,7 @@ def window_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
             acc = acc + (prod * (1.0 / k)).sum(-1)
     # XLA divides by the constant V as a product with its float32
     # reciprocal; so does this, to the bit.
-    if groups == 1:
+    if variance:
         out = sq * (1.0 / V) - (s * (1.0 / V)) ** 2
     else:
         out = acc * (1.0 / (V - 1))
@@ -504,26 +511,32 @@ def window_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
 
 
 def build_cost_volume(feats: Tensor, proj_mats: Tensor, depth_values: Tensor,
-                      groups: int = 1, sampling: str = "auto") -> Tensor:
-    """Differentiable cost volume. Shapes as in :func:`plain_cost_volume`.
+                      groups: int = 1, sampling: str = "auto",
+                      kind: str | None = None) -> Tensor:
+    """Differentiable cost volume. Shapes and ``kind`` as in
+    :func:`plain_cost_volume`.
 
     sampling "auto" or "patch": the CUDA kernels (K1 forward, K2 backward)
     for a CUDA tensor, the plain version under autograd for a CPU tensor;
-    exact bilinear, as the JAX patch path is. "quad": :func:`quad_cost_volume`.
-    "window": :func:`window_cost_volume` where :func:`window_config` allows
-    (a warning once a process), else the exact path of "auto", as JAX
-    falls back to its exact samplers.
+    exact bilinear, as the JAX patch path is. "quad": :func:`quad_cost_volume`
+    (no one-group correlation). "window": :func:`window_cost_volume` where
+    :func:`window_config` allows (a warning once a process), else the exact
+    path of "auto", as JAX falls back to its exact samplers.
     """
+    kind = volume_kind(kind, groups)
     if sampling == "quad":
+        if kind == "groupwise" and groups == 1:
+            raise ValueError("sampling='quad' has no one-group correlation; "
+                             "use 'auto'")
         return quad_cost_volume(feats, proj_mats, depth_values, groups)
     if sampling == "window":
         cfg = window_config(feats.shape[-1], depth_values.shape[1])
         if cfg is not None:
             _warn_window_once()
             return window_cost_volume(feats, proj_mats, depth_values, groups,
-                                      cfg)
+                                      cfg, kind)
     elif sampling not in ("auto", "patch"):
         raise ValueError(f"unknown sampling mode {sampling!r}")
     if feats.is_cuda:
-        return _CostVolume.apply(feats, proj_mats, depth_values, groups)
-    return plain_cost_volume(feats, proj_mats, depth_values, groups)
+        return _CostVolume.apply(feats, proj_mats, depth_values, groups, kind)
+    return plain_cost_volume(feats, proj_mats, depth_values, groups, kind)

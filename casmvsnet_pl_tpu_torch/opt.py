@@ -11,6 +11,8 @@ from __future__ import annotations
 import argparse
 import os
 
+from .models import ARCHS
+
 
 def sampling_choices():
     """CLI-reachable sampling modes: exact modes only.
@@ -49,6 +51,10 @@ def get_opts(argv=None):
     parser.add_argument('--num_groups', type=int, default=1,
                         choices=[1, 2, 4, 8],
                         help='groups in groupwise correlation (divisor of 8)')
+    parser.add_argument('--arch', type=str, default='casmvsnet',
+                        choices=list(ARCHS),
+                        help='the model: CasMVSNet, or TransMVSNet (eval '
+                             'only: train_torch.py refuses it)')
     parser.add_argument('--loss_type', type=str, default='sl1',
                         choices=['sl1'], help='loss to use')
 

@@ -96,14 +96,18 @@ def build_parent(tree: Path) -> tuple[CostVolumeKernel, str]:
 
 
 def registers(log: str) -> dict:
-    """'T C G' -> (registers, spill store bytes) from ptxas -v output."""
+    """'T C G' -> (registers, spill store bytes) from ptxas -v output; the
+    groupwise correlation with one group (kind ``Lb0E`` at G = 1) as
+    'T C G=1 groupwise'."""
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"cost_volume_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                      line)
+        m = re.search(r"cost_volume_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
+                      r"(?:Lb([01])E)?", line)
         if "Compiling entry function" in line:
             cur = (("f32" if m.group(1) == "f" else "bf16") +
-                   f" C={m.group(2)} G={m.group(3)}") if m else None
+                   f" C={m.group(2)} G={m.group(3)}" +
+                   (" groupwise" if m.group(3) == "1" and m.group(4) == "0"
+                    else "")) if m else None
         elif cur and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
             out[cur] = [None, spill]

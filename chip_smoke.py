@@ -318,6 +318,18 @@ no TPU counterpart):
      that f32 bound); then timed against cuDNN's bf16 conv in turns, each
      beside its bound and its byte bound.
 
+TransMVSNet's ARF, the modulated deformable 3x3 conv (``csrc/deform_conv.cu``,
+no TPU counterpart):
+ 55. (run after phase 54) the kernel against its plain version
+     (``ops/deform_conv.py::plain_deform_conv``) at the three levels'
+     shapes of 1152x864x5 (5 images of 8, 16 and 32 channels, offsets of
+     about a pixel): f32 within 1e-5 of the sum of |terms|, bf16 within
+     one bf16 ulp of the f32 result of the same bf16 values (or that f32
+     bound); then timed against the plain version in turns, each level
+     beside its bound; then TransMVSNet's bf16 forward at 640x512x3
+     (``entry(arch="transmvsnet")``), launching exactly K1 and the prob
+     conv 3 times and the deformable conv 9 times.
+
 Every cascade forward on the card launches the prob conv's kernel once a
 level, and every path's launches count it beside K1 (or #3/#5). A plain
 forward held against a kernel forward (phases 5, 31, 39, 41) takes
@@ -329,7 +341,9 @@ Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and the float32 operations of
 the function it computes over 67 TFLOP/s, the H100 SXM's published rates,
 counted from this run's shapes (the lane-prefix copy's bytes are the
-prefixes it must read and write, not the whole rows).
+prefixes it must read and write, not the whole rows). The deformable
+conv's bound (phase 55, ``perfbench/counts/deform_conv.py``) also counts
+its bf16 contraction at C >= 16 at the dense bf16 tensor rate.
 """
 from __future__ import annotations
 
@@ -388,6 +402,9 @@ QUAD_STEP = {"variance_epilogue_cuda": 3, "variance_epilogue_bwd_cuda": 3,
 G8_FWD = {"groupwise_epilogue_cuda": 3, **PROB}
 G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3,
            **PROB}
+# TransMVSNet's forward: K1 (its one-group correlation) and the prob conv
+# once a level, the ARF's three deformable convs a level
+TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9, **PROB}
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
 # the probes' kernels (TPU kernels #9-#13), each launched on the probes path
@@ -451,7 +468,8 @@ def all_kernels() -> dict:
         "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
         "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
         "groupwise_epilogue_bwd_cuda", "tap_reduce_cuda",
-        "tap_reduce_bwd_cuda", "prob_conv_cuda") + PROBE_KERNELS}
+        "tap_reduce_bwd_cuda", "prob_conv_cuda", "deform_conv_cuda")
+        + PROBE_KERNELS}
 
 
 def reset_counts() -> None:
@@ -497,21 +515,24 @@ def plain_prob(run):
 
 
 def check_kernel(kernel, plain, inputs) -> float:
-    """Kernel vs plain at every level shape; returns the max f32 abs error."""
+    """Kernel vs plain at every level shape, for the variance, the
+    groupwise correlation at G = 8 and at G = 1 (TransMVSNet's); returns the
+    max f32 abs error."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
     worst = 0.0
     for l, C, D, h, w in levels():
         proj, dv = inputs[l]
         feats = torch.rand((1, 3, h, w, C), generator=g, device=DEVICE)
-        for groups in (1, 8):
-            name = "variance" if groups == 1 else f"groupwise{groups}"
-            k32 = kernel(feats, proj, dv, groups)
-            p32 = plain(feats, proj, dv, groups)
+        for kind, groups in (("variance", 1), ("groupwise", 8),
+                             ("groupwise", 1)):
+            name = kind if kind == "variance" else f"groupwise{groups}"
+            k32 = kernel(feats, proj, dv, groups, kind)
+            p32 = plain(feats, proj, dv, groups, kind)
             err = (k32 - p32).abs().max().item()
             worst = max(worst, err)
             fb = feats.to(torch.bfloat16)
-            kb = kernel(fb, proj, dv, groups)
-            pb = plain(fb.float(), proj, dv, groups).to(torch.bfloat16)
+            kb = kernel(fb, proj, dv, groups, kind)
+            pb = plain(fb.float(), proj, dv, groups, kind).to(torch.bfloat16)
             ulps = ((kb.float() - pb.float()).abs()
                     / bf16_ulp(pb)).max().item()
             ndiff = (kb != pb).sum().item()
@@ -882,11 +903,12 @@ def check_epilogues_bwd(inputs2) -> dict:
 # --- kernel timing ----------------------------------------------------------
 
 def time_level(sums: dict, name: str, label: str, run_k, run_p, iters,
-               work, card, note: str = "") -> None:
+               work, card, note: str = "", least=None) -> None:
     """Time a kernel against its plain version on one level's inputs, in
     turns plain/kernel/kernel/plain (``iters`` = calls per turn, kernel and
     plain), print both beside the bound of ``work`` = (bytes, float32
-    operations), and add the times and the work into ``sums[name]``."""
+    operations), or ``least`` = (bound ms, what sets it) where given, and
+    add the times and the work into ``sums[name]``."""
     k_iters, p_iters = iters
     p1 = cuda_ms(run_p, p_iters)
     k1 = cuda_ms(run_k, k_iters)
@@ -894,7 +916,7 @@ def time_level(sums: dict, name: str, label: str, run_k, run_p, iters,
     p2 = cuda_ms(run_p, p_iters)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     nbytes, flops = work
-    b_ms, by = bound(nbytes, flops)
+    b_ms, by = least or bound(nbytes, flops)
     print(f"timing {name} {label}: kernel {k_ms!r} ms ({k1!r}, {k2!r}), "
           f"plain {p_ms!r} ms ({p1!r}, {p2!r}); {note}bound {b_ms!r} ms by "
           f"{by} ({nbytes / 1e6!r} MB, {flops / 1e9!r} GFLOP) -> "
@@ -1062,6 +1084,102 @@ def prob_conv_phase(card) -> tuple[float, dict]:
         out[case] = (k_ms, p_ms, b_ms, by, byte_ms)
     torch.cuda.empty_cache()
     return worst, out
+
+
+# --- the ARF's deformable conv: TransMVSNet's DCNv2 3x3 (phase 55) --------
+
+# The kernel and the plain version sum in float32 in different orders: f32
+# within 1e-5 of the sum of |terms| (the plain version on |x| and |w|, whose
+# samples bound the samples' magnitudes); a bf16 output is one rounding of
+# that sum, within one bf16 ulp of the float32 result (or that f32 bound
+# where cancellation leaves a value whose ulp is below it)
+DCN_TOL = 1e-5
+
+
+def deform_conv_cases(img_wh=None):
+    """(level, N, C, h, w) of TransMVSNet's ARF at eval's 1152x864x5."""
+    W, H = img_wh or EVAL_WH
+    return [(l, EVAL_VIEWS, C, H >> l, W >> l)
+            for l, C in enumerate((8, 16, 32))]
+
+
+def deform_conv_inputs(N, C, h, w, g):
+    """x (N, C, h, w) and the raw offset-and-mask conv output (N, 27, h,
+    w), both channels_last, offsets of about a pixel; weight (C, C, 3, 3)
+    Kaiming-normal."""
+    x = torch.randn((N, h, w, C), generator=g, device=DEVICE)
+    om = torch.randn((N, h, w, 27), generator=g, device=DEVICE)
+    wt = torch.randn((C, C, 3, 3), generator=g, device=DEVICE) * (
+        2.0 / (9 * C)) ** 0.5
+    return x.permute(0, 3, 1, 2), om.permute(0, 3, 1, 2), wt
+
+
+def deform_conv_phase(card) -> tuple[float, dict]:
+    """Phase 55: the deformable conv's kernel against its plain version at
+    the three levels' shapes of 1152x864x5 (f32 x, offsets and weight; then
+    bf16 x, offsets and weight against the f32 plain version of the same
+    bf16 values), then timed against the plain version in turns, beside
+    its bound (``perfbench/counts/deform_conv.py``). Returns the largest
+    f32 error and the sums over the three levels: (kernel ms, plain ms,
+    the levels' bounds in ms, what sets each)."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_cuda
+    from casmvsnet_pl_tpu_torch.ops.deform_conv import plain_deform_conv
+    from perfbench.counts.deform_conv import dcn_bound_s, dcn_work
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    worst, sums, least_ms, bound_by = 0.0, {}, 0.0, []
+    for l, N, C, h, w in deform_conv_cases():
+        x, om, wt = deform_conv_inputs(N, C, h, w, g)
+        with torch.no_grad():
+            terms = plain_deform_conv(x.abs(), om, wt.abs()).float()
+            err = (deform_conv_cuda(x, om, wt).float()
+                   - plain_deform_conv(x, om, wt).float()).abs()
+            over32 = (err > DCN_TOL * terms).sum().item()
+            err32 = err.max().item()
+            worst = max(worst, err32)
+            del err, terms
+            xb, ob, wb = (t.to(torch.bfloat16) for t in (x, om, wt))
+            del x, om, wt
+            ref = plain_deform_conv(xb.float(), ob.float(), wb.float())
+            tol = torch.maximum(DCN_TOL * plain_deform_conv(
+                xb.float().abs(), ob.float(), wb.float().abs()),
+                bf16_ulp(ref))
+            eb = (deform_conv_cuda(xb, ob, wb).float() - ref).abs()
+            ulps = (eb / bf16_ulp(ref)).max().item()
+            over16 = (eb > tol).sum().item()
+        print(f"deform-conv-check L{l} (N, C, h, w) {(N, C, h, w)}: f32 "
+              f"max_abs_err={err32!r}, values beyond {DCN_TOL} x sum|terms| "
+              f"{over32}; bf16: max ulps of the f32 result {ulps!r}, values "
+              f"beyond one ulp and the f32 bound {over16}/{eb.numel()}")
+        if over32 or over16:
+            raise AssertionError(f"deform conv L{l} differs from its plain "
+                                 "version")
+        del ref, tol, eb
+        nbytes, ops, tensor_ops = dcn_work(N, h, w, C, 2)
+        b_s, by = dcn_bound_s(N, h, w, C, 2)
+        least_ms += 1e3 * b_s
+        bound_by.append(f"L{l} {by}")
+        time_level(sums, "deform_conv", f"L{l} bf16 {(N, C, h, w)}",
+                   lambda: deform_conv_cuda(xb, ob, wb),
+                   lambda: plain_deform_conv(xb, ob, wb), (20, 2),
+                   (nbytes, ops + tensor_ops), card,
+                   f"tensor cores {tensor_ops / 1e9!r} GFLOP; ",
+                   (1e3 * b_s, by))
+        del xb, ob, wb
+        torch.cuda.empty_cache()
+    k_ms, p_ms = sums["deform_conv"][:2]
+    by = ", ".join(bound_by)
+    print(f"deform_conv, sum over the 3 level shapes (one conv each): kernel "
+          f"{k_ms!r} ms, plain {p_ms!r} ms; bound {least_ms!r} ms ({by}) -> "
+          f"{100 * least_ms / k_ms!r} % [{card}]")
+    return worst, (k_ms, p_ms, least_ms, by)
+
+
+def transmvsnet_path(entry) -> dict:
+    """TransMVSNet's bf16 forward at B=1 (``entry(arch="transmvsnet")``):
+    its outputs checked and its launches exactly ``TRANS_FWD``."""
+    return forward_main_path(entry, TRANS_FWD, " arch=transmvsnet",
+                             arch="transmvsnet")
 
 
 def profile(fn, label: str, card, iters: int = 3) -> None:
@@ -3397,6 +3515,8 @@ def main() -> int:
     kernel_times = time_kernels(inputs, inputs2, card)
     k1_shapes = time_k1_shapes(kernel, card, k1)
     errs["prob_conv_cuda"], prob_times = prob_conv_phase(card)
+    errs["deform_conv_cuda"], dcn_times = deform_conv_phase(card)
+    paths["transmvsnet"] = transmvsnet_path(entry)
     profile_paths(entry, train_entry, card)
 
     errs.update(check_tap_reduce(inputs2))
@@ -3491,6 +3611,13 @@ def main() -> int:
                        "byte_bound_ms": t[4]} for case, t in
                 prob_times.items()})
     lines.append(prob_line)
+    # the ARF's deformable conv: no TPU kernel, no library call
+    lines.append(kernel_line(
+        "deform_conv", csrc + "deform_conv.cu", None,
+        by_path("deform_conv_cuda", default_paths + ("transmvsnet",)),
+        "transmvsnet", errs["deform_conv_cuda"], dcn_times,
+        "bf16 x, offsets and weight, 5 views at 1152x864, one conv a level, "
+        "sum over the 3 level shapes"))
     all_paths = default_paths + g8_paths + ("warp", "probes")
     summary = probe_summary(probe_results)
     for name, source, line in (

@@ -9,7 +9,9 @@ JAX package (flax msgpack); the format is told from the file's first
 bytes. DST is written with the port's ``save_checkpoint`` and loads with
 ``strict=True`` wherever a checkpoint of the port loads: ``eval_torch.py
 --ckpt_path``, ``train_torch.py --ckpt_path`` and ``demo_torch.py
---ckpt_path``. The counterpart of ``scripts/convert_torch_ckpt.py``;
+--ckpt_path``. ``--arch`` names the model (CasMVSNet, the default;
+TransMVSNet is refused: the port holds no converter for its published
+checkpoints). The counterpart of ``scripts/convert_torch_ckpt.py``;
 ``casmvsnet_pl_tpu_torch/utils/torch_convert.py`` says how the files are
 read (a Lightning file's pickle only through an allow-list).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import sys
 from argparse import ArgumentParser
 
+from casmvsnet_pl_tpu_torch.models import ARCHS
 from casmvsnet_pl_tpu_torch.utils import convert_checkpoint, save_checkpoint
 
 
@@ -25,7 +28,14 @@ def main(argv=None) -> dict:
     parser = ArgumentParser()
     parser.add_argument("src", help="reference .ckpt/.pth or JAX checkpoint")
     parser.add_argument("dst", help="output checkpoint of the port")
+    parser.add_argument("--arch", default="casmvsnet", choices=list(ARCHS),
+                        help="the model whose checkpoint SRC holds")
     args = parser.parse_args(argv)
+    if args.arch != "casmvsnet":
+        raise SystemExit(
+            f"convert_ckpt_torch.py: --arch {args.arch} has no converter: "
+            "the port reads CasMVSNet checkpoints only (TransMVSNet's "
+            "published weights are not mapped)")
     ckpt = convert_checkpoint(args.src)
     save_checkpoint(args.dst, ckpt)
     n = sum(v.numel() for v in ckpt["params"].values())

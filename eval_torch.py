@@ -41,7 +41,7 @@ from casmvsnet_pl_tpu_torch.data.base import load_image_cv2, resize_linear
 from casmvsnet_pl_tpu_torch.data.jpeg import write_jpeg
 from casmvsnet_pl_tpu_torch.entry import init_weights
 from casmvsnet_pl_tpu_torch.fusion import fuse_and_write
-from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
+from casmvsnet_pl_tpu_torch.models import ARCHS, CascadeMVSNet, build_model
 from casmvsnet_pl_tpu_torch.opt import sampling_choices
 from casmvsnet_pl_tpu_torch.utils import extract_model_params, load_checkpoint
 from casmvsnet_pl_tpu_torch.utils.visualization import COLORMAPS
@@ -60,6 +60,10 @@ def get_opts(argv=None):
                         help='run inference and fusion on the CPU instead '
                              'of the card')
     # depth prediction
+    parser.add_argument('--arch', type=str, default='casmvsnet',
+                        choices=list(ARCHS),
+                        help='the model: CasMVSNet or TransMVSNet (its '
+                             'volume is the one-group correlation)')
     parser.add_argument('--n_views', type=int, default=5)
     parser.add_argument('--depth_interval', type=float, default=2.65)
     parser.add_argument('--n_depths', nargs='+', type=int, default=[8, 32, 48])
@@ -130,9 +134,8 @@ def build_predictor(args) -> Predictor:
     one, seeded random weights."""
     device = resolve_device(args)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
-    model = CascadeMVSNet(n_depths=tuple(args.n_depths),
-                          interval_ratios=tuple(args.interval_ratios),
-                          num_groups=args.num_groups, sampling=args.sampling)
+    model = build_model(args.arch, args.n_depths,
+                        args.interval_ratios, args.num_groups, args.sampling)
     if args.ckpt_path:
         ckpt = load_checkpoint(args.ckpt_path)
         model.load_state_dict({**extract_model_params(ckpt),

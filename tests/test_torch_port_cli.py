@@ -30,7 +30,7 @@ from casmvsnet_pl_tpu_torch.utils.tensorboard import (images, read_events,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP = ((16, 48), (16, 48))
 # flags of the port that the JAX package does not have
-PORT_ONLY = {"cpu"}
+PORT_ONLY = {"cpu", "arch"}
 
 
 def _parser(module, monkeypatch):

@@ -26,6 +26,27 @@ def test_registers_reads_k1_entries_of_a_ptxas_log():
                                  "f32 C=16 G=4": [72, 4]}
 
 
+KIND_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118cost_volume_kernelI13__nv_bfloat16Li32ELi1ELb1EEEvPKT_PKfS6_PS2_iiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118cost_volume_kernelI13__nv_bfloat16Li32ELi1ELb0EEEvPKT_PKfS6_PS2_iiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118cost_volume_kernelIfLi8ELi8ELb0EEEvPKT_PKfS5_PS1_iiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_registers_tell_the_one_group_correlation_from_the_variance():
+    """K1 instantiated by kind (``Lb1E`` the variance, ``Lb0E`` the groupwise
+    correlation): G = 1 of the correlation gets a key of its own."""
+    assert k1.registers(KIND_LOG) == {"bf16 C=32 G=1": [127, 0],
+                                      "bf16 C=32 G=1 groupwise": [96, 0],
+                                      "f32 C=8 G=8": [64, 0]}
+
+
 def test_eval_case_is_the_eval_configuration():
     img_wh, views, batch, groups = k1.CASES["eval"]
     assert (img_wh, views, batch, groups) == ((1152, 864), 5, 1, 1)

@@ -9,7 +9,9 @@ events (scalars and [image|GT|pred|prob] panels) under
     python train_torch.py --root_dir <DTU training root> --batch_size 2 \\
         --optimizer adam --lr 1e-3 --num_epochs 16
 
-It trains ``CascadeMVSNet`` (``--n_depths``, ``--interval_ratios``,
+It trains ``CascadeMVSNet`` (``--arch casmvsnet``, the default; ``--arch
+transmvsnet`` is refused: TransMVSNet runs for inference only, through
+``eval_torch.py``) (``--n_depths``, ``--interval_ratios``,
 ``--num_groups``, ``--sampling``) at ``--precision`` on the train split of
 ``--dataset_name``'s reader (DTU, or BlendedMVS at its 768x576, where
 ``--depth_interval`` is the number of depth hypotheses in all; a warm
@@ -71,6 +73,16 @@ def dataset_class(name: str):
     return dataset_dict[name]
 
 
+def refuse_arch(hparams) -> None:
+    """Exit with a message for an ``--arch`` the trainer cannot train."""
+    if hparams.arch != "casmvsnet":
+        raise SystemExit(
+            f"train_torch.py: --arch {hparams.arch} cannot be trained yet: "
+            "TransMVSNet's focal loss and the backward of its deformable "
+            "conv are not ported; run it for inference with eval_torch.py "
+            "--arch transmvsnet")
+
+
 def main(hparams, dataset_cls=None, time_steps: bool = False):
     """Train as ``hparams`` say. ``dataset_cls`` replaces the dataset's
     reader (a subclass for another tree layout; it must pickle when
@@ -78,6 +90,7 @@ def main(hparams, dataset_cls=None, time_steps: bool = False):
     wall time, loader wait and loss in the trainer's ``step_times``.
     Returns (trainer, state) in a single process, None after spawning
     ranks."""
+    refuse_arch(hparams)
     device = resolve_device(hparams)
     dataset_cls = dataset_cls or dataset_class(hparams.dataset_name)
     if "WORLD_SIZE" in os.environ and int(os.environ["WORLD_SIZE"]) > 1:
