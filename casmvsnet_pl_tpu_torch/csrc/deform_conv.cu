@@ -187,15 +187,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kMmaWarps = 4;
 constexpr int kMmaRows = 16;    // pixels a warp
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int C>
 __global__ void __launch_bounds__(kMmaWarps * 32)
     deform_conv_kernel_mma(const __nv_bfloat16* __restrict__ x,

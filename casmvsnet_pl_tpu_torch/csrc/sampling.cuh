@@ -1,9 +1,10 @@
 // Device helpers shared by the cost-volume kernels (cost_volume.cu, the
 // forward, and cost_volume_bwd.cu, its adjoint), the quad configuration's
-// cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu) and the probes:
-// dtype conversion, 16-byte row loads and stores, the 4-tap reduce of a
-// packed-quad row, the plane-sweep projection, the bilinear taps and the
-// (dtype, C, G) dispatch.
+// cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu), the probes, the
+// deformable conv (deform_conv.cu) and the FMT's layer (fmt_layer.cu):
+// dtype conversion, 16-byte row loads and stores, the bf16 mma.sync, the
+// 4-tap reduce of a packed-quad row, the plane-sweep projection, the
+// bilinear taps and the (dtype, C, G) dispatch.
 //
 // Every product and sum that the plain PyTorch version (ops/geometry.py::
 // project_to_src, ops/grid_sample.py) rounds separately is written with an
@@ -70,6 +71,20 @@ __device__ __forceinline__ void store_row(T* __restrict__ p,
 #pragma unroll
     for (int k = 0; k < N; ++k) p[k] = from_float<T>(v[k]);
   }
+}
+
+// c += A B on the tensor cores (mma.sync m16n8k16, bf16 in, float32 sums):
+// a the A fragment of a 16 x 16 row-major tile (rows g and g + 8, columns
+// 2 t, 2 t + 1 and 8 more, g = lane / 4, t = lane % 4), b0 and b1 the B
+// fragment of a 16 x 8 column-major tile (rows 2 t, 2 t + 1 and 8 more of
+// column g), c the 16 x 8 sums (rows g, g + 8; columns 2 t, 2 t + 1).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // o += w * row, for N consecutive channels of one tap.

@@ -10,8 +10,11 @@ LoFTR's ``LoFTREncoderLayer`` (``q_proj``, ``k_proj``, ``v_proj``,
 ``merge``, ``mlp.0``, ``mlp.2``, ``norm1``, ``norm2``); ``layers`` holds
 them as the published ``FMT`` does, self and cross alternating.
 
-The views run batched: a self layer takes all B x V views in one call, a
-cross layer all B x (V-1) source views against their reference.
+The views run batched through ``ops/fmt_layer.py::fmt_layer``, one call a
+layer over one (B, V, L, C) buffer: a self layer takes all B x V views, a
+cross layer all B x (V-1) source views against their reference. On the
+card each layer is the kernel ``csrc/fmt_layer.cu`` (two launches), which
+updates the buffer in place; on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -19,12 +22,11 @@ import math
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from ..ops.fmt_layer import fmt_layer
 from ..utils.profiling import span
 
 Tensor = torch.Tensor
-EPS = 1e-6
 
 
 def sine_encoding(d_model: int, h: int, w: int, device=None) -> Tensor:
@@ -43,32 +45,14 @@ def sine_encoding(d_model: int, h: int, w: int, device=None) -> Tensor:
     return pe.reshape(h, w, d_model)
 
 
-def linear_attention(q: Tensor, k: Tensor, v: Tensor, eps: float = EPS
-                     ) -> Tensor:
-    """LoFTR's ``LinearAttention``: phi(x) = elu(x) + 1,
-    out = phi(Q) (phi(K)^T V) / (phi(Q) sum_s phi(K_s) + eps), each head
-    alone. q (N, L, H, D); k, v (Ns, S, H, D), N a multiple of Ns: source
-    batch i serves queries i r .. i r + r - 1 (r = N / Ns). V is divided by
-    S before its product and the result multiplied by S after, as LoFTR
-    does. Returns (N, L, H, D)."""
-    Q, K = F.elu(q) + 1, F.elu(k) + 1
-    S = v.shape[1]
-    kv = torch.einsum("nshd,nshv->nhdv", K, v / S)
-    ksum = K.sum(dim=1)
-    r = q.shape[0] // k.shape[0]
-    if r > 1:
-        kv, ksum = kv.repeat_interleave(r, 0), ksum.repeat_interleave(r, 0)
-    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", Q, ksum) + eps)
-    return torch.einsum("nlhd,nhdv,nlh->nlhv", Q, kv, z) * S
-
-
 class EncoderLayer(nn.Module):
-    """LoFTR's encoder layer: x + norm2(mlp([x, norm1(merge(attention(x,
-    source)))])), Linear layers without bias."""
+    """LoFTR's encoder layer's parameters; its arithmetic is
+    ``ops/fmt_layer.py`` (x + norm2(mlp([x, norm1(merge(attention(x,
+    source)))])), Linear layers without bias)."""
 
     def __init__(self, d_model: int = 32, nhead: int = 8):
         super().__init__()
-        self.nhead, self.dim = nhead, d_model // nhead
+        self.nhead = nhead
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
         self.v_proj = nn.Linear(d_model, d_model, bias=False)
@@ -80,18 +64,12 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
 
-    def forward(self, x: Tensor, source: Tensor) -> Tensor:
-        """x (N, L, C), source (Ns, S, C) with N a multiple of Ns (see
-        :func:`linear_attention`) -> (N, L, C)."""
-        N, L, C = x.shape
-        Ns, S = source.shape[:2]
-        q = self.q_proj(x).view(N, L, self.nhead, self.dim)
-        k = self.k_proj(source).view(Ns, S, self.nhead, self.dim)
-        v = self.v_proj(source).view(Ns, S, self.nhead, self.dim)
-        message = linear_attention(q, k, v).reshape(N, L, C)
-        message = self.norm1(self.merge(message))
-        message = self.norm2(self.mlp(torch.cat([x, message], dim=2)))
-        return x + message
+    def weights(self) -> tuple[Tensor, ...]:
+        """The ten tensors in ``ops/fmt_layer.py``'s order."""
+        return (self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                self.merge.weight, self.mlp[0].weight, self.mlp[2].weight,
+                self.norm1.weight, self.norm1.bias, self.norm2.weight,
+                self.norm2.bias)
 
 
 class FMT(nn.Module):
@@ -118,15 +96,11 @@ class FMT(nn.Module):
         """feats (B, V, h, w, C), the reference view first -> the same
         shape, every view transformed."""
         B, V, h, w, C = feats.shape
-        L = h * w
-        x = (feats + self.encoding(h, w, feats)).reshape(B * V, L, C)
+        # a buffer of the FMT's own, which the card's layers update in place
+        x = (feats + self.encoding(h, w, feats)).reshape(B, V, h * w, C)
         for b in range(self.blocks):
             with span("fmt.block", block=b):
-                x = self.layers[2 * b](x, x)
-                views = x.view(B, V, L, C)
-                ref = views[:, 0]
-                src = views[:, 1:].reshape(B * (V - 1), L, C)
-                src = self.layers[2 * b + 1](src, ref)
-                x = torch.cat([ref[:, None], src.view(B, V - 1, L, C)],
-                              dim=1).reshape(B * V, L, C)
+                for layer, cross in ((self.layers[2 * b], False),
+                                     (self.layers[2 * b + 1], True)):
+                    x = fmt_layer(x, layer.weights(), layer.nhead, cross)
         return x.view(B, V, h, w, C)

@@ -328,7 +328,19 @@ no TPU counterpart):
      bound); then timed against the plain version in turns, each level
      beside its bound; then TransMVSNet's bf16 forward at 640x512x3
      (``entry(arch="transmvsnet")``), launching exactly K1 and the prob
-     conv 3 times and the deformable conv 9 times.
+     conv 3 times, the deformable conv 9 times and the FMT's layer kernel
+     16 times (two launches a layer).
+
+TransMVSNet's FMT, one LoFTR encoder layer a call (``csrc/fmt_layer.cu``,
+no TPU counterpart):
+ 56. (run after phase 55) the FMT's eight layers (self and cross in turn)
+     at the eval shape (5 views of 216x288 = 62,208 tokens, drawn Linear
+     and LayerNorm parameters) through the kernel against the plain layer
+     (``ops/fmt_layer.py::plain_fmt_layer``): float32 within 8e-4 of the
+     plain float32 layers; bf16 no farther from the plain float32 layers on
+     the same bf16 values than the plain bf16 layers are; then the eight
+     layers timed in bf16 against the plain layers in turns, beside their
+     bound (``perfbench/counts/fmt_layer.py``).
 
 Every cascade forward on the card launches the prob conv's kernel once a
 level, and every path's launches count it beside K1 (or #3/#5). A plain
@@ -403,8 +415,10 @@ G8_FWD = {"groupwise_epilogue_cuda": 3, **PROB}
 G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3,
            **PROB}
 # TransMVSNet's forward: K1 (its one-group correlation) and the prob conv
-# once a level, the ARF's three deformable convs a level
-TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9, **PROB}
+# once a level, the ARF's three deformable convs a level, the FMT's eight
+# layers at two launches each
+TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9,
+             "fmt_layer_cuda": 16, **PROB}
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
 # the probes' kernels (TPU kernels #9-#13), each launched on the probes path
@@ -468,7 +482,8 @@ def all_kernels() -> dict:
         "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
         "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
         "groupwise_epilogue_bwd_cuda", "tap_reduce_cuda",
-        "tap_reduce_bwd_cuda", "prob_conv_cuda", "deform_conv_cuda")
+        "tap_reduce_bwd_cuda", "prob_conv_cuda", "deform_conv_cuda",
+        "fmt_layer_cuda")
         + PROBE_KERNELS}
 
 
@@ -1173,6 +1188,99 @@ def deform_conv_phase(card) -> tuple[float, dict]:
           f"{k_ms!r} ms, plain {p_ms!r} ms; bound {least_ms!r} ms ({by}) -> "
           f"{100 * least_ms / k_ms!r} % [{card}]")
     return worst, (k_ms, p_ms, least_ms, by)
+
+
+# --- the FMT's LoFTR layer: TransMVSNet's Feature Matching Transformer (56) --
+
+# float32: each product runs as three bf16 products (hi hi, lo hi, hi lo),
+# within ~2^-16 of its terms, and the LayerNorms bring the outputs to unit
+# scale: 2e-4 a layer, 8e-4 over the eight layers one after the other (as
+# tests/test_torch_port_fmt_layer.py); bf16: the kernel rounds once a
+# layer, the plain bf16 layer after every operator, so the kernel is no
+# farther from the float32 layers
+FMT_F32_TOL = 8e-4
+FMT_BF16_FACTOR = 1.0
+
+
+def fmt_layer_inputs(g):
+    """The eval shape's FMT input (1, 5, 62208, 32), unit normal, and its
+    eight layers' weights: Linear N(0, 1 / fan_in), LayerNorm weights
+    1 + N(0, 0.3), biases N(0, 0.3), in ``ops/fmt_layer.py``'s order."""
+    from casmvsnet_pl_tpu_torch.kernels.fmt_layer import WEIGHT_SHAPES
+    W, H = EVAL_WH
+    x = torch.randn((1, EVAL_VIEWS, (H >> 2) * (W >> 2), 32), generator=g,
+                    device=DEVICE)
+    layers = []
+    for _ in range(8):
+        ws = []
+        for i, shape in enumerate(WEIGHT_SHAPES):
+            r = torch.randn(shape, generator=g, device=DEVICE)
+            ws.append(r / shape[1] ** 0.5 if i < 6 else
+                      (1.0 if i in (6, 8) else 0.0) + 0.3 * r)
+        layers.append(ws)
+    return x, layers
+
+
+def plain_fmt(x, layers):
+    """The eight layers' plain versions over views x (B, V, L, C), self
+    and cross in turn, in x's dtype, on x's device."""
+    from casmvsnet_pl_tpu_torch.ops.fmt_layer import plain_fmt_views
+    for i, ws in enumerate(layers):
+        x = plain_fmt_views(x, ws, 8, bool(i % 2))
+    return x
+
+
+def fmt_layer_phase(card) -> tuple[float, tuple]:
+    """Phase 56: the FMT's eight layers at the eval shape through the
+    kernel against their plain versions (f32; bf16 against the plain bf16
+    layers' own gap to f32), then timed in bf16 against the plain layers
+    in turns, beside their bound. Returns the largest f32 error and
+    (kernel ms, plain ms, bound ms, what sets it)."""
+    from casmvsnet_pl_tpu_torch.kernels import fmt_layer_cuda
+    from perfbench.counts.fmt_layer import fmt_bound_s, fmt_layers, \
+        layer_work
+    from perfbench.harness import load_json
+
+    def kernel_fmt(x, layers):
+        for i, ws in enumerate(layers):
+            fmt_layer_cuda(x, ws, 8, bool(i % 2))
+        return x
+
+    g = torch.Generator(device=DEVICE).manual_seed(56)
+    x, layers = fmt_layer_inputs(g)
+    with torch.no_grad():
+        err32 = (kernel_fmt(x.clone(), layers)
+                 - plain_fmt(x, layers)).abs().max().item()
+        xb = x.to(torch.bfloat16)
+        lb = [[w.to(torch.bfloat16) for w in ws] for ws in layers]
+        exact = plain_fmt(xb.float(), [[w.float() for w in ws] for ws in lb])
+        gap = (kernel_fmt(xb.clone(), lb).float() - exact).abs()
+        module = (plain_fmt(xb, lb).float() - exact).abs()
+        print(f"fmt-layer-check 8 layers (1, 5, 62208, 32): f32 "
+              f"max_abs_err={err32!r} (tolerance {FMT_F32_TOL}); bf16 gap "
+              f"to f32 max {gap.max().item()!r} mean {gap.mean().item()!r}, "
+              f"the plain bf16 layers' max {module.max().item()!r} mean "
+              f"{module.mean().item()!r}")
+        if err32 > FMT_F32_TOL or gap.max() > FMT_BF16_FACTOR * module.max():
+            raise AssertionError("the FMT layer differs from its plain "
+                                 "version")
+        del x, exact, gap, module
+        cfg = load_json("configs", "transmvsnet.json")
+        nbytes = ops = tensor_ops = 0
+        for n, s, cross in fmt_layers(cfg, EVAL_WH, EVAL_VIEWS, 1):
+            b, c, t = layer_work(n, s, 32, 8, cross)
+            nbytes, ops, tensor_ops = nbytes + b, ops + c, tensor_ops + t
+        b_ms = 1e3 * fmt_bound_s(cfg, EVAL_WH, EVAL_VIEWS, 1)
+        sums = {}
+        buf = xb.clone()
+        time_level(sums, "fmt_layer", "bf16 8 layers (1, 5, 62208, 32)",
+                   lambda: kernel_fmt(buf, lb), lambda: plain_fmt(xb, lb),
+                   (20, 3), (nbytes, ops + tensor_ops), card,
+                   f"tensor cores {tensor_ops / 1e9!r} GFLOP; ",
+                   (b_ms, "bytes"))
+    k_ms, p_ms = sums["fmt_layer"][:2]
+    torch.cuda.empty_cache()
+    return err32, (k_ms, p_ms, b_ms, "bytes")
 
 
 def transmvsnet_path(entry) -> dict:
@@ -3516,6 +3624,7 @@ def main() -> int:
     k1_shapes = time_k1_shapes(kernel, card, k1)
     errs["prob_conv_cuda"], prob_times = prob_conv_phase(card)
     errs["deform_conv_cuda"], dcn_times = deform_conv_phase(card)
+    errs["fmt_layer_cuda"], fmt_times = fmt_layer_phase(card)
     paths["transmvsnet"] = transmvsnet_path(entry)
     profile_paths(entry, train_entry, card)
 
@@ -3618,6 +3727,13 @@ def main() -> int:
         "transmvsnet", errs["deform_conv_cuda"], dcn_times,
         "bf16 x, offsets and weight, 5 views at 1152x864, one conv a level, "
         "sum over the 3 level shapes"))
+    # the FMT's layer: no TPU kernel, no library call
+    lines.append(kernel_line(
+        "fmt_layer", csrc + "fmt_layer.cu", None,
+        by_path("fmt_layer_cuda", default_paths + ("transmvsnet",)),
+        "transmvsnet", errs["fmt_layer_cuda"], fmt_times,
+        "bf16 views, the FMT's 8 layers (4 self, 4 cross) over 5 views of "
+        "62,208 tokens at 1152x864"))
     all_paths = default_paths + g8_paths + ("warp", "probes")
     summary = probe_summary(probe_results)
     for name, source, line in (

@@ -138,7 +138,7 @@ def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     before = _all_launches()
-    assert len(before) == 18          # with TransMVSNet's deformable conv
+    assert len(before) == 19          # with TransMVSNet's DCN and FMT layer
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)

@@ -32,10 +32,10 @@ from casmvsnet_pl_tpu_torch.kernels.cost_volume import (  # noqa: E402
     cost_volume_bwd_cuda, volume_kind)
 from casmvsnet_pl_tpu_torch.models import (TransMVSNet,  # noqa: E402
                                            build_model)
-from casmvsnet_pl_tpu_torch.models.fmt import (linear_attention,  # noqa: E402
-                                               sine_encoding)
+from casmvsnet_pl_tpu_torch.models.fmt import sine_encoding  # noqa: E402
 from casmvsnet_pl_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_conv, plain_deform_conv)
+from casmvsnet_pl_tpu_torch.ops.fmt_layer import linear_attention  # noqa: E402
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (  # noqa: E402
     build_cost_volume, plain_cost_volume)
 from casmvsnet_pl_tpu_torch.opt import get_opts  # noqa: E402
