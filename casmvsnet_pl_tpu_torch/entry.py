@@ -178,8 +178,7 @@ def data_parallel_step(rank_: int, world: int, device: torch.device,
         batch = trainer.device_batch(shard_batch(global_batch, rank_, world))
     if spec.get("weights") is not None:
         state.model.load_state_dict(spec["weights"], strict=True)
-    names = [n for n in dir(kernels) if n.endswith("_cuda")]
-    before = {n: getattr(kernels, n).launches for n in names}
+    launches = kernels.launch_counts()
     state, logs = trainer.train_step(state, batch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -190,5 +189,6 @@ def data_parallel_step(rank_: int, world: int, device: torch.device,
                   state.model.named_parameters()},
         "buffers": {k: b.detach().cpu() for k, b in
                     state.model.named_buffers()},
-        "launches": {n: getattr(kernels, n).launches - before[n]
-                     for n in names}}, f"{spec['out']}.{rank_}")
+        "launches": {n: c - launches[n] for n, c in
+                     kernels.launch_counts().items()}},
+        f"{spec['out']}.{rank_}")

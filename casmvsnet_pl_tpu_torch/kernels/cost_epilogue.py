@@ -1,7 +1,7 @@
 """Launch the quad configuration's CUDA cost epilogues.
 
 Four wrappers, each with its own launch count, over two kernels of the
-shared library that ``kernels/cost_volume.py`` builds from ``csrc/``:
+shared library that ``kernels/library.py`` builds from ``csrc/``:
 
 - ``variance_epilogue_cuda`` and ``groupwise_epilogue_cuda``,
   ``csrc/cost_epilogue.cu``: TPU kernels #3 and #5,
@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import (_CHANNELS, _DTYPE_CODES, _GROUPS, _LIBRARY, _Kernel,
-                          check_device, check_layout)
+from .library import (CHANNELS, DTYPE_CODES, GROUPS, LIBRARY, Kernel,
+                      check_device, check_layout)
 
 Tensor = torch.Tensor
 
 
-def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
-                  groups: int, grad: Tensor | None = None) -> int:
+def check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
+                 groups: int, grad: Tensor | None = None) -> int:
     """Raise on anything the kernels do not take (shapes as in
     :meth:`EpilogueKernel.__call__`); returns the device index."""
     tensors = (ref, rows, ws) + (() if grad is None else (grad,))
@@ -36,12 +36,12 @@ def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
     if ref.ndim != 3:
         raise ValueError(f"ref must be (B, HW, C), got {tuple(ref.shape)}")
     B, hw, C = ref.shape
-    if ref.dtype not in _DTYPE_CODES:
-        raise ValueError(f"ref dtype {ref.dtype} not in {list(_DTYPE_CODES)}")
-    if C not in _CHANNELS:
-        raise ValueError(f"C={C} not in {_CHANNELS}")
-    if groups not in _GROUPS or C % groups:
-        raise ValueError(f"groups={groups} not in {_GROUPS} or does not "
+    if ref.dtype not in DTYPE_CODES:
+        raise ValueError(f"ref dtype {ref.dtype} not in {list(DTYPE_CODES)}")
+    if C not in CHANNELS:
+        raise ValueError(f"C={C} not in {CHANNELS}")
+    if groups not in GROUPS or C % groups:
+        raise ValueError(f"groups={groups} not in {GROUPS} or does not "
                          f"divide C={C}")
     if rows.ndim != 5 or rows.shape[0] != B or rows.shape[1] < 1 \
             or rows.shape[3:] != (hw, 4 * C) or rows.dtype != ref.dtype:
@@ -60,7 +60,7 @@ def _check_inputs(name: str, ref: Tensor, rows: Tensor, ws: Tensor,
     return dev
 
 
-class _Epilogue(_Kernel):
+class _Epilogue(Kernel):
     """A cost epilogue kernel: the variance one (groups == 1 only) or the
     groupwise one (groups > 1 only)."""
 
@@ -85,13 +85,13 @@ class EpilogueKernel(_Epilogue):
         (B, S, D, HW, 4) f32 tap weights. Returns (B, D, HW, C) (variance)
         or (B, D, HW, G) in ref's dtype, with no autograd graph."""
         self._check_groups(groups)
-        dev = _check_inputs(self.name, ref, rows, ws, groups)
+        dev = check_inputs(self.name, ref, rows, ws, groups)
         B, hw, C = ref.shape
         S, D = rows.shape[1:3]
         out = ref.new_empty((B, D, hw, C if groups == 1 else groups))
         self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
                      out.data_ptr(), B, S, D, hw, C, groups,
-                     _DTYPE_CODES[ref.dtype])
+                     DTYPE_CODES[ref.dtype])
         return out
 
 
@@ -106,7 +106,7 @@ class EpilogueBwdKernel(_Epilogue):
         f32, d rows in the rows' dtype, d ws f32), each element written
         once (no atomics: the same result from run to run)."""
         self._check_groups(groups)
-        dev = _check_inputs(self.name, ref, rows, ws, groups, grad)
+        dev = check_inputs(self.name, ref, rows, ws, groups, grad)
         B, hw, C = ref.shape
         S, D = rows.shape[1:3]
         d_ref = ref.new_empty(ref.shape, dtype=torch.float32)
@@ -115,17 +115,17 @@ class EpilogueBwdKernel(_Epilogue):
         self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
                      grad.data_ptr(), d_ref.data_ptr(), d_rows.data_ptr(),
                      d_ws.data_ptr(), B, S, D, hw, C, groups,
-                     _DTYPE_CODES[ref.dtype])
+                     DTYPE_CODES[ref.dtype])
         return d_ref, d_rows, d_ws
 
 
 variance_epilogue_cuda = EpilogueKernel(
-    _LIBRARY, "variance_epilogue_cuda", "cost_epilogue_fwd", groupwise=False)
+    LIBRARY, "variance_epilogue_cuda", "cost_epilogue_fwd", groupwise=False)
 groupwise_epilogue_cuda = EpilogueKernel(
-    _LIBRARY, "groupwise_epilogue_cuda", "cost_epilogue_fwd", groupwise=True)
+    LIBRARY, "groupwise_epilogue_cuda", "cost_epilogue_fwd", groupwise=True)
 variance_epilogue_bwd_cuda = EpilogueBwdKernel(
-    _LIBRARY, "variance_epilogue_bwd_cuda", "cost_epilogue_bwd",
+    LIBRARY, "variance_epilogue_bwd_cuda", "cost_epilogue_bwd",
     groupwise=False)
 groupwise_epilogue_bwd_cuda = EpilogueBwdKernel(
-    _LIBRARY, "groupwise_epilogue_bwd_cuda", "cost_epilogue_bwd",
+    LIBRARY, "groupwise_epilogue_bwd_cuda", "cost_epilogue_bwd",
     groupwise=True)

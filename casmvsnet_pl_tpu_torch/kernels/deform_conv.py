@@ -2,7 +2,7 @@
 ``csrc/deform_conv.cu``.
 
 One wrapper with its own launch count, ``deform_conv_cuda``, over the
-shared library that ``kernels/cost_volume.py`` builds from ``csrc/``. It
+shared library that ``kernels/library.py`` builds from ``csrc/``. It
 replaces no TPU kernel (the JAX package has no TransMVSNet). Plain version:
 ``ops/deform_conv.py::plain_deform_conv``. The wrapper is a raw launch that
 records no autograd graph; ``ops/deform_conv.py::deform_conv`` calls it on
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import _DTYPE_CODES, _LIBRARY, _Kernel, check_device, \
-    check_layout
+from .library import (DTYPE_CODES, LIBRARY, Kernel, check_device,
+                      check_layout)
 
 Tensor = torch.Tensor
 
@@ -22,7 +22,7 @@ CHANNELS = (8, 16, 32)
 OFFSET_MASK = 27            # 2 x 9 offsets and 9 masks a pixel
 
 
-class DeformConvKernel(_Kernel):
+class DeformConvKernel(Kernel):
     """The deformable conv's forward, ``csrc/deform_conv.cu``."""
 
     def __call__(self, x: Tensor, offset_mask: Tensor,
@@ -38,8 +38,8 @@ class DeformConvKernel(_Kernel):
             raise ValueError(f"x must be (N, C, H, W) with C in {CHANNELS}, "
                              f"got {tuple(x.shape)}")
         N, C, H, W = x.shape
-        if x.dtype not in _DTYPE_CODES:
-            raise ValueError(f"x dtype {x.dtype} not in {list(_DTYPE_CODES)}")
+        if x.dtype not in DTYPE_CODES:
+            raise ValueError(f"x dtype {x.dtype} not in {list(DTYPE_CODES)}")
         if offset_mask.shape != (N, OFFSET_MASK, H, W) \
                 or offset_mask.dtype != x.dtype:
             raise ValueError(f"offset_mask must be {x.dtype} "
@@ -59,9 +59,9 @@ class DeformConvKernel(_Kernel):
         if out.numel():
             self._launch(dev, x.data_ptr(), offset_mask.data_ptr(),
                          weight.data_ptr(), out.data_ptr(), N, H, W, C,
-                         _DTYPE_CODES[x.dtype])
+                         DTYPE_CODES[x.dtype])
         return out
 
 
-deform_conv_cuda = DeformConvKernel(_LIBRARY, "deform_conv_cuda",
+deform_conv_cuda = DeformConvKernel(LIBRARY, "deform_conv_cuda",
                                     "deform_conv_fwd")

@@ -2,7 +2,7 @@
 Transformer, ``csrc/fmt_layer.cu``.
 
 One wrapper with its own launch count, ``fmt_layer_cuda``, over the shared
-library that ``kernels/cost_volume.py`` builds from ``csrc/``. It replaces
+library that ``kernels/library.py`` builds from ``csrc/``. It replaces
 no TPU kernel (the JAX package has no TransMVSNet). Plain version:
 ``ops/fmt_layer.py::plain_fmt_layer``. A layer is two launches, counted
 one by one: the reduction over the source tokens, then the pass over the
@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import _DTYPE_CODES, _LIBRARY, _Kernel, check_device, \
-    check_layout
+from .library import (DTYPE_CODES, LIBRARY, Kernel, check_device,
+                      check_layout)
 
 Tensor = torch.Tensor
 
@@ -28,7 +28,7 @@ WEIGHT_SHAPES = ((D_MODEL, D_MODEL),) * 4 + (
     (2 * D_MODEL, 2 * D_MODEL), (D_MODEL, 2 * D_MODEL)) + ((D_MODEL,),) * 4
 
 
-class FmtLayerKernel(_Kernel):
+class FmtLayerKernel(Kernel):
     """A LoFTR encoder layer in place, ``csrc/fmt_layer.cu``: two launches."""
 
     def __init__(self, *args):
@@ -49,9 +49,9 @@ class FmtLayerKernel(_Kernel):
                              f"{tuple(views.shape)}")
         if nhead != HEADS:
             raise ValueError(f"{self.name} takes {HEADS} heads, got {nhead}")
-        if views.dtype not in _DTYPE_CODES:
+        if views.dtype not in DTYPE_CODES:
             raise ValueError(f"views dtype {views.dtype} not in "
-                             f"{list(_DTYPE_CODES)}")
+                             f"{list(DTYPE_CODES)}")
         if len(weights) != len(WEIGHT_SHAPES) or any(
                 tuple(w.shape) != s or w.dtype != views.dtype
                 for w, s in zip(weights, WEIGHT_SHAPES)):
@@ -80,10 +80,10 @@ class FmtLayerKernel(_Kernel):
         args = (views.data_ptr(), *(w.data_ptr() for w in weights),
                 kv.data_ptr(), partial.data_ptr(), partial.numel(),
                 count.data_ptr(), count.numel(), B, V, L, int(cross))
-        code = _DTYPE_CODES[views.dtype]
+        code = DTYPE_CODES[views.dtype]
         self._launch(dev, *args, 0, code)
         self._launch(dev, *args, 1, code)
         return views
 
 
-fmt_layer_cuda = FmtLayerKernel(_LIBRARY, "fmt_layer_cuda", "fmt_layer_fwd")
+fmt_layer_cuda = FmtLayerKernel(LIBRARY, "fmt_layer_cuda", "fmt_layer_fwd")

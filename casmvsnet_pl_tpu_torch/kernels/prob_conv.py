@@ -1,7 +1,7 @@
 """Launch CostRegNet's 8 -> 1 ``prob`` convolution, ``csrc/prob_conv.cu``.
 
 One wrapper with its own launch count, ``prob_conv_cuda``, over the shared
-library that ``kernels/cost_volume.py`` builds from ``csrc/``. It replaces
+library that ``kernels/library.py`` builds from ``csrc/``. It replaces
 no TPU kernel: it takes the 3x3x3 convolution of 8 channels to 1 from
 cuDNN, whose generic kernel for one output channel leaves the tensor cores
 idle. Plain version: ``F.conv3d``. The wrapper is a raw launch that records
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import _DTYPE_CODES, _LIBRARY, _Kernel, check_device, \
-    check_layout
+from .library import (DTYPE_CODES, LIBRARY, Kernel, check_device,
+                      check_layout)
 
 Tensor = torch.Tensor
 
@@ -22,7 +22,7 @@ CHANNELS = 8
 WEIGHT_SHAPE = (1, CHANNELS, 3, 3, 3)
 
 
-class ProbConvKernel(_Kernel):
+class ProbConvKernel(Kernel):
     """The ``prob`` conv's forward, ``csrc/prob_conv.cu``."""
 
     def __call__(self, x: Tensor, weight: Tensor, bias: Tensor) -> Tensor:
@@ -35,13 +35,13 @@ class ProbConvKernel(_Kernel):
         if x.ndim != 5 or x.shape[1] != CHANNELS:
             raise ValueError(f"x must be (B, {CHANNELS}, D, H, W), got "
                              f"{tuple(x.shape)}")
-        if x.dtype not in _DTYPE_CODES:
-            raise ValueError(f"x dtype {x.dtype} not in {list(_DTYPE_CODES)}")
+        if x.dtype not in DTYPE_CODES:
+            raise ValueError(f"x dtype {x.dtype} not in {list(DTYPE_CODES)}")
         if weight.shape != WEIGHT_SHAPE or bias.shape != (1,) \
                 or weight.dtype != bias.dtype \
-                or weight.dtype not in _DTYPE_CODES:
+                or weight.dtype not in DTYPE_CODES:
             raise ValueError(f"weight and bias must be {WEIGHT_SHAPE} and "
-                             f"(1,) of one dtype in {list(_DTYPE_CODES)}, got "
+                             f"(1,) of one dtype in {list(DTYPE_CODES)}, got "
                              f"{weight.dtype} {tuple(weight.shape)} and "
                              f"{bias.dtype} {tuple(bias.shape)}")
         if not x.is_contiguous(memory_format=torch.channels_last_3d):
@@ -53,8 +53,8 @@ class ProbConvKernel(_Kernel):
         if out.numel():
             self._launch(dev, x.data_ptr(), weight.data_ptr(),
                          bias.data_ptr(), out.data_ptr(), B, D, H, W,
-                         _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype])
+                         DTYPE_CODES[x.dtype], DTYPE_CODES[weight.dtype])
         return out
 
 
-prob_conv_cuda = ProbConvKernel(_LIBRARY, "prob_conv_cuda", "prob_conv_fwd")
+prob_conv_cuda = ProbConvKernel(LIBRARY, "prob_conv_cuda", "prob_conv_fwd")

@@ -1,7 +1,7 @@
 """Launch the probe kernels: the card's counterparts of TPU kernels #9-#13.
 
 Eight wrappers, each with its own launch count, over three sources of the
-shared library that ``kernels/cost_volume.py`` builds from ``csrc/``:
+shared library that ``kernels/library.py`` builds from ``csrc/``:
 
 - ``lane_prefix_copy_cuda``, ``csrc/probe_copy_gather.cu``: TPU kernel
   #11, ``scripts/probe_epi3.py::make_copy``;
@@ -24,9 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from .cost_epilogue import _check_inputs as _check_epilogue
-from .cost_volume import (_DTYPE_CODES, _LIBRARY, _Kernel, check_device,
-                          check_layout)
+from .cost_epilogue import check_inputs as check_epilogue
+from .library import (DTYPE_CODES, LIBRARY, Kernel, check_device,
+                      check_layout)
 
 Tensor = torch.Tensor
 
@@ -45,9 +45,9 @@ def _check(name: str, *tensors: Tensor) -> int:
 
 
 def _check_dtype(name: str, t: Tensor, what: str) -> None:
-    if t.dtype not in _DTYPE_CODES:
+    if t.dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: {what} dtype {t.dtype} not in "
-                         f"{list(_DTYPE_CODES)}")
+                         f"{list(DTYPE_CODES)}")
 
 
 def _check_idx(name: str, idx: Tensor) -> None:
@@ -56,7 +56,7 @@ def _check_idx(name: str, idx: Tensor) -> None:
                          f"{tuple(idx.shape)}")
 
 
-class LanePrefixCopyKernel(_Kernel):
+class LanePrefixCopyKernel(Kernel):
     """TPU kernel #11, ``csrc/probe_copy_gather.cu``."""
 
     def __call__(self, rows: Tensor, rows_per_block: int = 1024) -> Tensor:
@@ -84,7 +84,7 @@ class LanePrefixCopyKernel(_Kernel):
         return out
 
 
-class RowGatherKernel(_Kernel):
+class RowGatherKernel(Kernel):
     """TPU kernel #13's row gather in one of three Hopper forms ("ldg",
     "cp_async", "bulk"), ``csrc/probe_copy_gather.cu``."""
 
@@ -117,7 +117,7 @@ class RowGatherKernel(_Kernel):
         return out
 
 
-class LaneGatherKernel(_Kernel):
+class LaneGatherKernel(Kernel):
     """TPU kernel #13's lane gather, ``csrc/probe_copy_gather.cu``."""
 
     def __call__(self, featT: Tensor, idx: Tensor) -> Tensor:
@@ -138,7 +138,7 @@ class LaneGatherKernel(_Kernel):
         return out
 
 
-class VarianceDblkKernel(_Kernel):
+class VarianceDblkKernel(Kernel):
     """TPU kernel #9, ``csrc/probe_epilogue.cu``."""
 
     def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor,
@@ -148,7 +148,7 @@ class VarianceDblkKernel(_Kernel):
         thread walks ``dblk`` >= 1 consecutive depths. Returns the variance
         (B, D, HW, C) in ref's dtype."""
         dev = _check(self.name, ref, rows, ws)
-        _check_epilogue(self.name, ref, rows, ws, 1)
+        check_epilogue(self.name, ref, rows, ws, 1)
         if int(dblk) < 1:
             raise ValueError(f"{self.name}: dblk={dblk} must be >= 1")
         B, hw, C = ref.shape
@@ -156,11 +156,11 @@ class VarianceDblkKernel(_Kernel):
         out = ref.new_empty((B, D, hw, C))
         self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
                      out.data_ptr(), B, S, D, hw, C, int(dblk),
-                     _DTYPE_CODES[ref.dtype])
+                     DTYPE_CODES[ref.dtype])
         return out
 
 
-class VarianceV3Kernel(_Kernel):
+class VarianceV3Kernel(Kernel):
     """TPU kernel #10, ``csrc/probe_epilogue.cu``."""
 
     def __call__(self, ref: Tensor, rows: Tensor, ws: Tensor,
@@ -169,7 +169,7 @@ class VarianceV3Kernel(_Kernel):
         = 3) and ``threads`` in {64, 128, 256, 512, 1024} per block (the
         probe's T)."""
         dev = _check(self.name, ref, rows, ws)
-        _check_epilogue(self.name, ref, rows, ws, 1)
+        check_epilogue(self.name, ref, rows, ws, 1)
         if rows.shape[1] != 2:
             raise ValueError(f"{self.name} takes S=2 source views, got "
                              f"rows {tuple(rows.shape)}")
@@ -181,11 +181,11 @@ class VarianceV3Kernel(_Kernel):
         out = ref.new_empty((B, D, hw, C))
         self._launch(dev, ref.data_ptr(), rows.data_ptr(), ws.data_ptr(),
                      out.data_ptr(), B, D, hw, C, threads,
-                     _DTYPE_CODES[ref.dtype])
+                     DTYPE_CODES[ref.dtype])
         return out
 
 
-class PatchEpilogueTKernel(_Kernel):
+class PatchEpilogueTKernel(Kernel):
     """TPU kernel #12, ``csrc/patch_epilogue_t.cu``."""
 
     def __call__(self, rowsT: Tensor, fx: Tensor, fy: Tensor) -> Tensor:
@@ -216,23 +216,23 @@ class PatchEpilogueTKernel(_Kernel):
         if out.numel():
             self._launch(dev, rowsT.data_ptr(), fx.data_ptr(), fy.data_ptr(),
                          out.data_ptr(), n_i, g, Ch, hw,
-                         _DTYPE_CODES[rowsT.dtype])
+                         DTYPE_CODES[rowsT.dtype])
         return out
 
 
 lane_prefix_copy_cuda = LanePrefixCopyKernel(
-    _LIBRARY, "lane_prefix_copy_cuda", "lane_prefix_copy_fwd")
-row_gather_ldg_cuda = RowGatherKernel(_LIBRARY, "row_gather_ldg_cuda", "ldg")
-row_gather_cp_async_cuda = RowGatherKernel(_LIBRARY,
+    LIBRARY, "lane_prefix_copy_cuda", "lane_prefix_copy_fwd")
+row_gather_ldg_cuda = RowGatherKernel(LIBRARY, "row_gather_ldg_cuda", "ldg")
+row_gather_cp_async_cuda = RowGatherKernel(LIBRARY,
                                            "row_gather_cp_async_cuda",
                                            "cp_async")
-row_gather_bulk_cuda = RowGatherKernel(_LIBRARY, "row_gather_bulk_cuda",
+row_gather_bulk_cuda = RowGatherKernel(LIBRARY, "row_gather_bulk_cuda",
                                        "bulk")
-lane_gather_cuda = LaneGatherKernel(_LIBRARY, "lane_gather_cuda",
+lane_gather_cuda = LaneGatherKernel(LIBRARY, "lane_gather_cuda",
                                     "lane_gather_fwd")
-variance_dblk_cuda = VarianceDblkKernel(_LIBRARY, "variance_dblk_cuda",
+variance_dblk_cuda = VarianceDblkKernel(LIBRARY, "variance_dblk_cuda",
                                         "variance_dblk_fwd")
-variance_v3_cuda = VarianceV3Kernel(_LIBRARY, "variance_v3_cuda",
+variance_v3_cuda = VarianceV3Kernel(LIBRARY, "variance_v3_cuda",
                                     "variance_v3_fwd")
 patch_epilogue_t_cuda = PatchEpilogueTKernel(
-    _LIBRARY, "patch_epilogue_t_cuda", "patch_epilogue_t_fwd")
+    LIBRARY, "patch_epilogue_t_cuda", "patch_epilogue_t_fwd")

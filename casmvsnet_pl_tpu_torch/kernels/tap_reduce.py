@@ -1,7 +1,7 @@
 """Launch the weighted 4-tap reduce of the packed-quad sampler.
 
 Two wrappers, each with its own launch count, over ``csrc/tap_reduce.cu``
-in the shared library that ``kernels/cost_volume.py`` builds from
+in the shared library that ``kernels/library.py`` builds from
 ``csrc/``:
 
 - ``tap_reduce_cuda``: TPU kernel #7,
@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from .cost_volume import (_CHANNELS, _DTYPE_CODES, _LIBRARY, _Kernel,
-                          check_device, check_layout)
+from .library import (CHANNELS, DTYPE_CODES, LIBRARY, Kernel, check_device,
+                      check_layout)
 
 Tensor = torch.Tensor
 
@@ -33,11 +33,11 @@ def _check_inputs(name: str, rows: Tensor, w: Tensor,
     if rows.ndim != 2 or rows.shape[1] % 4:
         raise ValueError(f"rows must be (N, 4C), got {tuple(rows.shape)}")
     N, C = rows.shape[0], rows.shape[1] // 4
-    if rows.dtype not in _DTYPE_CODES:
+    if rows.dtype not in DTYPE_CODES:
         raise ValueError(f"rows dtype {rows.dtype} not in "
-                         f"{list(_DTYPE_CODES)}")
-    if C not in _CHANNELS:
-        raise ValueError(f"C={C} not in {_CHANNELS}")
+                         f"{list(DTYPE_CODES)}")
+    if C not in CHANNELS:
+        raise ValueError(f"C={C} not in {CHANNELS}")
     if w.shape != (N, 4) or w.dtype != torch.float32:
         raise ValueError(f"w must be f32 {(N, 4)}, got {w.dtype} "
                          f"{tuple(w.shape)}")
@@ -48,7 +48,7 @@ def _check_inputs(name: str, rows: Tensor, w: Tensor,
     return dev
 
 
-class TapReduceKernel(_Kernel):
+class TapReduceKernel(Kernel):
     """TPU kernel #7, ``csrc/tap_reduce.cu``."""
 
     def __call__(self, rows: Tensor, w: Tensor) -> Tensor:
@@ -60,11 +60,11 @@ class TapReduceKernel(_Kernel):
         out = rows.new_empty((N, C), dtype=torch.float32)
         if N:
             self._launch(dev, rows.data_ptr(), w.data_ptr(), out.data_ptr(),
-                         N, C, _DTYPE_CODES[rows.dtype])
+                         N, C, DTYPE_CODES[rows.dtype])
         return out
 
 
-class TapReduceBwdKernel(_Kernel):
+class TapReduceBwdKernel(Kernel):
     """TPU kernel #8, the VJP of :class:`TapReduceKernel`,
     ``csrc/tap_reduce.cu``."""
 
@@ -81,11 +81,11 @@ class TapReduceBwdKernel(_Kernel):
         if N:
             self._launch(dev, rows.data_ptr(), w.data_ptr(), g.data_ptr(),
                          d_rows.data_ptr(), d_w.data_ptr(), N, C,
-                         _DTYPE_CODES[rows.dtype])
+                         DTYPE_CODES[rows.dtype])
         return d_rows, d_w
 
 
-tap_reduce_cuda = TapReduceKernel(_LIBRARY, "tap_reduce_cuda",
+tap_reduce_cuda = TapReduceKernel(LIBRARY, "tap_reduce_cuda",
                                   "tap_reduce_fwd")
-tap_reduce_bwd_cuda = TapReduceBwdKernel(_LIBRARY, "tap_reduce_bwd_cuda",
+tap_reduce_bwd_cuda = TapReduceBwdKernel(LIBRARY, "tap_reduce_bwd_cuda",
                                          "tap_reduce_bwd")

@@ -38,8 +38,8 @@ from pathlib import Path
 
 import torch
 
-from ..kernels.cost_volume import (BUILD_DIR, NVCC_FLAGS, CostVolumeKernel,
-                                   cost_volume_cuda, find_nvcc)
+from ..kernels.cost_volume import CostVolumeKernel, cost_volume_cuda
+from ..kernels.library import BUILD_DIR, NVCC_FLAGS, KernelLibrary, find_nvcc
 from ..ops.plane_sweep import plain_cost_volume
 from . import common
 
@@ -52,18 +52,17 @@ CASES = {   # name: (img_wh, views, batch, groups)
 }
 
 
-class _Library:
-    """The parent tree's K1 in a library of its own, as ``_Kernel`` uses
-    it: its entries carry the suffix ``_parent``."""
+class _Library(KernelLibrary):
+    """The parent tree's K1 in a library of its own, already loaded: its
+    entries carry the suffix ``_parent``, and its kernel stays out of the
+    port's launch counts."""
 
     def __init__(self, lib: ctypes.CDLL):
-        self.lib = lib
+        super().__init__()
+        self._lib = lib
         err = lib.cost_volume_error_string_parent
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         self._err = err
-
-    def build(self) -> ctypes.CDLL:
-        return self.lib
 
     def check(self, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: "

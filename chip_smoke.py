@@ -284,29 +284,10 @@ TinyDTU fit, ``tests/conftest.py::quality_fit``, at 64x64 with n_depths
      not held: from that start the recipe's cloud misses the bound on the
      CPU too, in the JAX package as in the port (``PERF.md`` §6).
 
-The measurement entry points (``bench_torch.py`` and ``scripts/*_torch.py``,
-the ports of ``bench.py`` and the JAX package's profiling scripts), each
-through its ``main`` at its defaults on the card, each its own path whose
-launches are counted:
- 51. ``bench_torch.main``: the bf16 forward at 640x512x3 for B = 1, 4, 8
-     (16 calls after 2 each), the matmul reference; the last line parses
-     with ``bench.py``'s keys, its value is the best of the three and
-     vs_baseline value / 4.0; B=1's time within 25 % of the median of
-     phase 6's readings (``time_forward``'s, B=1), three taken right
-     before it and three right after; exactly 3 K1 a forward;
- 52. ``scripts/flops_report_torch.py`` at B = 1, 4, 8: the counted
-     convolutions (``FlopCounterMode`` over a forward through K1) equal the
-     analytic count, 98.02088448 GFLOP at 640x512x3 B=1; GFLOP, TFLOP/s and
-     the share of 989 TFLOP/s printed beside the card's name and power
-     limit; 3 K1 a forward;
- 53. ``scripts/profile_stages_torch.py`` and ``scripts/profile_bwd_torch.py``
-     at their defaults (B=2, 640x512x3; the stage sum beside the FULL
-     cascade), ``scripts/profile_train_step_torch.py`` with sampling auto and
-     quad, ``scripts/profile_eval_res_torch.py`` (auto, quad; 1152x864x5):
-     every time finite and positive; launches exactly 3 K1 a forward
-     (warp+cost lines and the cascade), 3 K1 + 3 K2 a backward round and a
-     step, 3 #3 + 3 #4 a quad step, 3 K1 / 3 #3 an eval view. No
-     iteration count is cut: the scripts' defaults take ~30 s together.
+Phases 51-53, which ran ``bench_torch.py`` and the five
+``scripts/*_torch.py`` profilers at their defaults and counted their
+launches, were removed: ``perfbench/`` measures the port, those scripts
+feed none of its cells, and their own CPU tests cover them.
 
 CostRegNet's last layer, the 8 -> 1 ``prob`` conv (``csrc/prob_conv.cu``,
 no TPU counterpart):
@@ -376,6 +357,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from casmvsnet_pl_tpu_torch.kernels import launch_counts, reset_launches
 from casmvsnet_pl_tpu_torch.probes.common import (HBM_BYTES_PER_S, bf16_ulp,
                                                   bound, cuda_ms, cv_work,
                                                   default_levels,
@@ -421,11 +403,6 @@ TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9,
              "fmt_layer_cuda": 16, **PROB}
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
-# the probes' kernels (TPU kernels #9-#13), each launched on the probes path
-PROBE_KERNELS = ("lane_prefix_copy_cuda", "row_gather_ldg_cuda",
-                 "row_gather_cp_async_cuda", "row_gather_bulk_cuda",
-                 "lane_gather_cuda", "variance_dblk_cuda", "variance_v3_cuda",
-                 "patch_epilogue_t_cuda")
 
 
 def levels(img_wh=None):
@@ -444,7 +421,7 @@ def toolchain() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0].strip()
     print(card)
-    from casmvsnet_pl_tpu_torch.kernels.cost_volume import find_nvcc
+    from casmvsnet_pl_tpu_torch.kernels.library import find_nvcc
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
@@ -473,27 +450,6 @@ def level_inputs(batch: int = 1, img_wh=None):
     the way the cascade builds them, on the plane scene, repeated B
     times."""
     return plane_levels(DEVICE, batch, img_wh or IMG_WH)
-
-
-def all_kernels() -> dict:
-    """Every kernel wrapper of the port by name."""
-    from casmvsnet_pl_tpu_torch import kernels as k
-    return {n: getattr(k, n) for n in (
-        "cost_volume_cuda", "cost_volume_bwd_cuda", "variance_epilogue_cuda",
-        "variance_epilogue_bwd_cuda", "groupwise_epilogue_cuda",
-        "groupwise_epilogue_bwd_cuda", "tap_reduce_cuda",
-        "tap_reduce_bwd_cuda", "prob_conv_cuda", "deform_conv_cuda",
-        "fmt_layer_cuda")
-        + PROBE_KERNELS}
-
-
-def reset_counts() -> None:
-    for kernel in all_kernels().values():
-        kernel.launches = 0
-
-
-def read_counts() -> dict:
-    return {n: k.launches for n, k in all_kernels().items()}
 
 
 def expect_counts(counts: dict, want: dict, what: str) -> None:
@@ -586,10 +542,10 @@ def sharpened_f32_forward(entry, sampling: str = "auto"):
 def counted(run, want: dict, what: str):
     """``run()`` between a reset and a read of the launch counts, which must
     be ``want``; returns its result."""
-    reset_counts()
+    reset_launches()
     out = run()
     torch.cuda.synchronize()
-    expect_counts(read_counts(), want, what)
+    expect_counts(launch_counts(), want, what)
     return out
 
 
@@ -597,10 +553,10 @@ def forward_main_path(entry, want: dict, label: str, **kw) -> dict:
     """One bf16 forward at B=1 through ``entry(**kw)``: its outputs checked
     and its launches exactly ``want``; returns the launches."""
     fn, args = entry(DEVICE, torch.bfloat16, img_wh=IMG_WH, **kw)
-    reset_counts()
+    reset_launches()
     depth, conf = fn(*args)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     print(f"forward bf16{label} main path: launches {counts}, depth_0 "
           f"{tuple(depth.shape)} range [{depth.min().item()!r}, "
           f"{depth.max().item()!r}], confidence_2 {tuple(conf.shape)} range "
@@ -736,12 +692,12 @@ def check_train_step(train_entry, plain, want: dict,
         trainer, state, batch = train_entry(
             DEVICE, torch.float32, img_wh=IMG_WH, optimizer="sgd", lr=1e-2,
             cost_volume=cv, sampling=sampling)
-        reset_counts()
+        reset_launches()
         state, logs = trainer.train_step(state, batch)
         torch.cuda.synchronize()
         runs[name] = (float(logs["train/loss"]),
                       {n: p.grad.double() for n, p in
-                       state.model.named_parameters()}, read_counts())
+                       state.model.named_parameters()}, launch_counts())
         del trainer, state, batch
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
@@ -772,13 +728,13 @@ def train_main_path(train_entry, card, steps: int, want_per_step: dict,
     every loss finite, the last below the first, and the launches exactly
     ``want_per_step`` a step. Returns (trainer, state, batch, launches)."""
     trainer, state, batch = train_entry(DEVICE, img_wh=IMG_WH, **kw)
-    reset_counts()
+    reset_launches()
     losses = []
     for _ in range(steps):
         state, logs = trainer.train_step(state, batch)
         losses.append(float(logs["train/loss"]))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     W, H = IMG_WH
     label = "".join(f" {k}={v}" for k, v in kw.items())
     print(f"train bf16{label} {W}x{H}x3 B=2 adam lr 1e-3, {steps} steps on "
@@ -1425,7 +1381,7 @@ def check_warp(inputs2) -> None:
                                             plain_grid_sample_quad,
                                             project_to_src,
                                             warp_src_quad_batched)
-    reset_counts()
+    reset_launches()
     for (l, C, D, h, w), leaves, G in warp_views(inputs2, torch.float32, 16):
         src, P, d = leaves
         out = warp_src_quad_batched(pack_quad(src), P, d, h, w)
@@ -1446,7 +1402,7 @@ def check_warp(inputs2) -> None:
             raise AssertionError(f"L{l} warp gradient error {rel}")
         del out, got, xy, plain, want
     torch.cuda.synchronize()
-    expect_counts(read_counts(), WARP_PATH, "f32 warp check")
+    expect_counts(launch_counts(), WARP_PATH, "f32 warp check")
 
 
 def warp_pass(views) -> torch.Tensor:
@@ -1468,11 +1424,11 @@ def warp_main_path(views, card) -> dict:
     source views at each level, every output and gradient finite, the
     launches exactly WARP_PATH; returns the launches."""
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     finite = bool(warp_pass(views))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     print(f"warp bf16 main path, B=2, both source views at 3 levels, forward "
           f"+ backward: {(time.perf_counter() - t0) * 1e3!r} ms wall, all "
           f"finite {finite}; launches {counts} [{card}]")
@@ -1532,13 +1488,20 @@ def time_tap_reduce(inputs2, card) -> tuple[dict, float]:
 
 # --- the probes: TPU kernels #9-#13 -----------------------------------------
 
+def probe_kernels() -> list[str]:
+    """The probes' kernels (TPU kernels #9-#13) by name: those of
+    ``kernels/probes.py``, each launched on the probes path."""
+    from casmvsnet_pl_tpu_torch.kernels import probes
+    return [n for n in launch_counts() if hasattr(probes, n)]
+
+
 def probes_path(card) -> tuple[list, dict]:
     """Phases 23-26: each probe's main path on the card; returns the timed
     results and the launches counted over the four phases, in which every
     probe kernel launches."""
     from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     results = gather.main(DEVICE, card, IMG_WH)               # 23: #13
     data = epi3.inputs(DEVICE)
@@ -1548,10 +1511,10 @@ def probes_path(card) -> tuple[list, dict]:
     del data
     results += epi5.main(DEVICE, card)                        # 26: #12
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     print(f"probes path (phases 23-26): {time.perf_counter() - t0!r} s wall; "
           f"launches {counts} [{card}]")
-    never = [n for n in PROBE_KERNELS if counts[n] < 1]
+    never = [n for n in probe_kernels() if counts[n] < 1]
     if never:
         raise AssertionError(f"probe kernels never launched: {never}")
     return results, counts
@@ -1563,7 +1526,7 @@ def probe_summary(results) -> dict:
     bound by, max f32 error over every configuration, library ms, what the
     times cover)."""
     out = {}
-    for name in PROBE_KERNELS:
+    for name in probe_kernels():
         mine = [r for r in results if r.kernel == name]
         groups = {}
         for r in mine:
@@ -1710,12 +1673,12 @@ def eval_inference(tree: str, dataset_cls, card):
     predict = eval_torch.build_predictor(args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     records = eval_torch.run_inference(args, ds, ds.scans, predict)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect_counts(counts, EVAL_FWD, "eval inference")
     lo, hi = sweep_range(args, float(ds[0]["init_depth_min"]),
@@ -1780,10 +1743,10 @@ def eval_checks(tree: str, dataset_cls, ds, predict, card) -> dict:
             f"{EVAL_WH[1]}x{EVAL_VIEWS}", card)
 
     g8 = eval_torch.build_predictor(eval_args(tree, "--num_groups", "8"))
-    reset_counts()
+    reset_launches()
     depth, conf = g8(*args)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     expect_counts(counts, DEFAULT_FWD, "eval bf16 view --num_groups 8")
     if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
         raise AssertionError("eval --num_groups 8: non-finite outputs")
@@ -1926,9 +1889,9 @@ TRAIN_SCANS = {"train": "scan1", "val": "scan2"}
 CLI_BATCH = 2
 CLI_STEPS = 17          # 35 samples, batch 2, the ragged last dropped
 CLI_VAL_BATCHES = 18    # 35 samples, the last batch padded
-CLI_EPOCH = {"cost_volume_cuda": 3 * (CLI_STEPS + CLI_VAL_BATCHES + 1),
-             "cost_volume_bwd_cuda": 3 * CLI_STEPS,
-             "prob_conv_cuda": 3 * (CLI_STEPS + CLI_VAL_BATCHES + 1)}
+# an epoch's steps, then a forward a val batch and one for the train panel
+CLI_EPOCH = summed(scaled(DEFAULT_STEP, CLI_STEPS),
+                   scaled(DEFAULT_FWD, CLI_VAL_BATCHES + 1))
 DP_BATCH = 4
 DP_N_DEPTHS = (8, 32, 48)
 DP_ORDERS = ((2, 3, 0, 1), (1, 0, 3, 2))   # the global batch's rows permuted
@@ -1998,12 +1961,12 @@ def cli_epoch(tree: str, dataset_cls, card, train_entry_ms: float) -> dict:
     args = cli_args(tree, "--num_epochs", "1")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     trainer, state = train_torch.main(args, dataset_cls, time_steps=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect_counts(counts, CLI_EPOCH, "train_torch.py epoch")
     times = trainer.step_times
@@ -2058,12 +2021,12 @@ def cli_resume(tree: str, dataset_cls) -> None:
     import train_torch
     from casmvsnet_pl_tpu_torch.utils import load_checkpoint
 
-    reset_counts()
+    reset_launches()
     trainer, state = train_torch.main(cli_args(
         tree, "--num_epochs", "1", "--resume_path", "ckpts/chip/last.ckpt"),
         dataset_cls)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     expect_counts(counts, CLI_EPOCH, "train_torch.py resumed epoch")
     adam_steps = {int(st["step"]) for st in
                   state.optimizer.state_dict()["state"].values()}
@@ -2243,9 +2206,8 @@ BMVS_CAMS = 12                  # a scene: 12 reference views, 10 sources each
 BMVS_DEPTHS = 192               # --depth_interval: hypotheses in all
 BMVS_STEPS = BMVS_CAMS // CLI_BATCH
 BMVS_VAL_BATCHES = BMVS_CAMS // CLI_BATCH
-BMVS_EPOCH = {"cost_volume_cuda": 3 * (BMVS_STEPS + BMVS_VAL_BATCHES + 1),
-              "cost_volume_bwd_cuda": 3 * BMVS_STEPS,
-              "prob_conv_cuda": 3 * (BMVS_STEPS + BMVS_VAL_BATCHES + 1)}
+BMVS_EPOCH = summed(scaled(DEFAULT_STEP, BMVS_STEPS),
+                    scaled(DEFAULT_FWD, BMVS_VAL_BATCHES + 1))
 BMVS_EVAL_VIEWS = 5             # eval_torch.py's --n_views default
 TANKS_SCAN = "Family"
 TANKS_CAMS = 5
@@ -2339,14 +2301,14 @@ def bmvs_train(work: str, dtu_ckpt: str, card) -> tuple[str, dict]:
              str(BMVS_DEPTHS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     trainer, state = train_torch.main(cli_args(
         root, *flags, "--num_epochs", "1", "--exp_name", "bmvs"),
         time_steps=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect_counts(counts, BMVS_EPOCH, "train_torch.py blendedmvs epoch")
     times = trainer.step_times
@@ -2425,10 +2387,10 @@ def tanks_eval(work: str, card) -> tuple[dict, float]:
     predict = eval_torch.build_predictor(args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launches()
     records = eval_torch.run_inference(args, ds, [TANKS_SCAN], predict)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect_counts(counts, scaled(DEFAULT_FWD, TANKS_CAMS), "tanks inference")
     sample = ds[0]
@@ -2542,7 +2504,7 @@ def bmvs_eval(root: str, work: str, card) -> dict:
 
     W, H = BMVS_WH
     scan = "synth_val"
-    reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     eval_torch.main(["--dataset_name", "blendedmvs", "--root_dir", root,
                      "--split", "val", "--img_wh", str(W), str(H),
@@ -2550,7 +2512,7 @@ def bmvs_eval(root: str, work: str, card) -> dict:
                      "--min_geo_consistent", "2"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     expect_counts(counts, scaled(DEFAULT_FWD, BMVS_CAMS),
                   "blendedmvs inference")
     out = f"results/blendedmvs/depth/{scan}"
@@ -2731,12 +2693,12 @@ def demo_main(ckpt: str, png: str, iters: int, what: str, card) -> tuple:
     result, its launches)."""
     import demo_torch
 
-    reset_counts()
+    reset_launches()
     out = demo_torch.main(["--ckpt_path", ckpt, "--img_wh", str(IMG_WH[0]),
                            str(IMG_WH[1]), "--precision", "bf16",
                            "--time_iters", str(iters), "--out_png", png])
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     expect_counts(counts, scaled(DEFAULT_FWD, 1 + iters), what)
     if out["ms_per_view"] is not None:
         print(f"{what}: {out['ms_per_view']!r} ms per view, "
@@ -2805,10 +2767,10 @@ def eval_converted(eval_work: str, ckpt: str, model, card) -> dict:
     cwd = os.getcwd()
     os.chdir(work)
     try:
-        reset_counts()
+        reset_launches()
         records = eval_torch.run_inference(args, ds, ds.scans, predict)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = launch_counts()
         scan, vid = ds[0]["scan_vid"]
         depth = read_pfm(f"results/dtu/depth/{scan}/depth_{vid:04d}.pfm")[0]
         proba = read_pfm(f"results/dtu/depth/{scan}/proba_{vid:04d}.pfm")[0]
@@ -3072,10 +3034,10 @@ def eval_window(eval_work: str, card) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        reset_launches()
         records = eval_torch.run_inference(args, ds, ds.scans, predict)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         depths = [read_pfm(f"results/dtu/depth/{EVAL_SCAN}/"
                            f"depth_{vid:04d}.pfm")[0]
@@ -3207,6 +3169,17 @@ def fit_summary(fit: dict) -> str:
             f"included, median from step 3); {fit['wall_s']!r} s")
 
 
+def fit_launches(epochs: int, panels: bool) -> dict:
+    """The launches of a ``convergence.quality_fit`` on the card: a step a
+    train batch, a forward a val batch (before the fit, each epoch, after
+    it) and, with ``panels``, one for each epoch's train panel (the val
+    panel reuses its batch's outputs)."""
+    from casmvsnet_pl_tpu_torch.engine import convergence as fit
+    steps, val = fit.N_TRAIN // fit.BATCH, -(-fit.N_VAL // fit.BATCH)
+    return summed(scaled(DEFAULT_STEP, steps * epochs), scaled(
+        DEFAULT_FWD, val * (epochs + 2) + (epochs if panels else 0)))
+
+
 def quality_fit_path(work: str, card) -> tuple[dict, str, type]:
     """Phase 49; returns the card fit's launches, its ``last.ckpt`` and the
     tree's reader."""
@@ -3224,13 +3197,13 @@ def quality_fit_path(work: str, card) -> tuple[dict, str, type]:
     print(f"quality fit f32 CPU (one thread, plain cost volume, "
           f"init_weights seed 0): {fit_summary(ref)}")
     ckpt_dir, log_dir = (os.path.join(work, d) for d in ("ckpts", "logs"))
-    reset_counts()
+    reset_launches()
     fit = convergence.quality_fit(root, DEVICE, QUALITY_DTYPE, seed=0,
                                   epochs=QUALITY_EPOCHS, ckpt_dir=ckpt_dir,
                                   log_dir=log_dir)
     torch.cuda.synchronize()
-    counts = read_counts()
-    want = convergence.expected_launches(QUALITY_EPOCHS, panels=True)
+    counts = launch_counts()
+    want = fit_launches(QUALITY_EPOCHS, panels=True)
     print(f"quality fit {str(QUALITY_DTYPE)[6:]} on the card (K1/K2, the "
           f"same weights): {fit_summary(fit)}; launches {counts} [{card}]")
     expect_counts(counts, want, "quality fit")
@@ -3285,10 +3258,10 @@ def cloud_score(work: str, dataset_cls, ckpt: str, tag: str, card
     ds = dataset_cls(root, "test", n_views=convergence.N_VIEWS,
                      img_wh=(64, 64))
     scan = convergence.SCANS["test"]
-    reset_counts()
+    reset_launches()
     records = eval_torch.run_inference(args, ds, [scan])
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     expect_counts(counts, scaled(DEFAULT_FWD, len(ds)), "cloud inference")
     t0 = time.perf_counter()
     eval_torch.run_fusion(args, ds, [scan])
@@ -3330,20 +3303,20 @@ def cloud_path(work: str, seed_ckpt: str, dataset_cls, card) -> dict:
     from casmvsnet_pl_tpu_torch.utils import jax_initial_weights
 
     ckpt_dir = os.path.join(work, "ckpts_jax")
-    reset_counts()
+    reset_launches()
     fit = convergence.quality_fit(
         os.path.join(work, "tiny_dtu"), DEVICE, QUALITY_DTYPE,
         weights=jax_initial_weights(convergence.model(), 0),
         epochs=QUALITY_EPOCHS, ckpt_dir=ckpt_dir)
     torch.cuda.synchronize()
-    fit_counts = read_counts()
+    fit_counts = launch_counts()
     print(f"quality fit {str(QUALITY_DTYPE)[6:]} on the card from JAX's "
           f"initial weights (PRNGKey 0, utils/jax_init.py): "
           f"{fit_summary(fit)}; thresholds "
           f"{convergence.threshold_failures(fit) or 'met'}; launches "
           f"{fit_counts} [{card}]")
-    expect_counts(fit_counts, convergence.expected_launches(
-        QUALITY_EPOCHS, panels=False), "quality fit from JAX's start")
+    expect_counts(fit_counts, fit_launches(QUALITY_EPOCHS, panels=False),
+                  "quality fit from JAX's start")
     counts, points, res = cloud_score(
         work, dataset_cls, os.path.join(ckpt_dir, "last.ckpt"), "jax_start",
         card)
@@ -3376,188 +3349,6 @@ def quality_path(card) -> dict:
     print(f"quality path (phases 49-50): {t50 - t0!r} s wall (49: "
           f"{t49 - t0!r}, 50: {t50 - t49!r}) [{card}]")
     return {"quality_fit": fit_counts, **paths}
-
-
-# --- the measurement entry points (phases 51-53) ---------------------------
-
-BENCH_BATCHES = (1, 4, 8)       # bench_torch.SWEEP's
-BENCH_TOL = 0.25                # B=1 against phase 6's readings, relative
-BENCH_REF_READINGS = 3          # phase 6's B=1 readings before and after
-FLOPS_BATCHES = (1, 4, 8)
-CONV_FLOPS_B1 = 98_020_884_480  # the convolutions at 640x512x3, B=1
-WARMUP = 2                      # utils.profiling.device_time's warm-up calls
-# the timed calls of each script: its defaults
-MEASURE_ITERS = {"flops": 16, "stages": 12, "bwd": 8, "train_step": 8,
-                 "eval_res": 8}
-
-
-def script(name: str):
-    """A measurement script of ``scripts/`` as a module."""
-    import importlib
-    scripts = os.path.join(REPO, "scripts")
-    if scripts not in sys.path:
-        sys.path.insert(0, scripts)
-    return importlib.import_module(name)
-
-
-def check_times(what: str, times: dict) -> None:
-    """Every time a script returned is finite and positive."""
-    bad = {k: v for k, v in times.items() if not (math.isfinite(v) and v > 0)}
-    if bad:
-        raise AssertionError(f"{what}: times not finite and positive {bad}")
-
-
-def bench_phase(card, phase6_ms: float) -> dict:
-    """Phase 51; returns its launches. bench_torch's B=1 forward is held
-    against the median of phase 6's readings (``time_forward``'s, B=1)
-    taken right before and right after it: the B=1 forward waits on the
-    host (its two host syncs), whose pace on a shared host moves by tens of
-    percent over the minutes between phase 6 and this one."""
-    import io
-
-    import bench_torch
-    from casmvsnet_pl_tpu_torch.entry import entry
-    fn, args = entry(DEVICE, torch.bfloat16, img_wh=IMG_WH)
-
-    def readings():
-        return [cuda_ms(lambda: fn(*args), 10)
-                for _ in range(BENCH_REF_READINGS)]
-
-    beside = readings()
-    reset_counts()
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        res = bench_torch.main(["--device", DEVICE])
-    torch.cuda.synchronize()
-    counts = read_counts()
-    beside += readings()
-    del fn, args
-    ref_ms = statistics.median(beside)
-    lines = out.getvalue().splitlines()
-    for line in lines:
-        print("bench_torch:", line)
-    last = json.loads(lines[-1])
-    batches = res["batches"]
-    best = max(r["maps_s"] for r in batches.values())
-    b1 = batches[1]["ms"]
-    print(f"bench_torch phase: batches {sorted(batches)}, ms/forward "
-          + ", ".join(f"B={b} {r['ms']!r} (host {r['host_ms']!r})"
-                      for b, r in batches.items())
-          + f"; B=1 against the median of phase 6's readings beside it "
-          f"{ref_ms!r} ms (before and after: {beside!r}; phase 6 itself "
-          f"{phase6_ms!r}): {b1 / ref_ms - 1.0!r} (bound {BENCH_TOL}); "
-          f"launches {counts} [{card}]")
-    if tuple(batches) != BENCH_BATCHES:
-        raise AssertionError(f"bench_torch ran batches {tuple(batches)}")
-    if set(last) != {"metric", "value", "unit", "vs_baseline"} or \
-            last["metric"] != "depth_maps_per_sec_per_chip_640x512_3views" \
-            or last["unit"] != "maps/s":
-        raise AssertionError(f"bench_torch's last line {last}")
-    if last["value"] != round(best, 3) or \
-            last["vs_baseline"] != round(best / 4.0, 3):
-        raise AssertionError(f"bench_torch's last line {last}, best {best}")
-    if not abs(b1 / ref_ms - 1.0) <= BENCH_TOL:
-        raise AssertionError(f"bench_torch B=1 {b1} ms against phase 6's "
-                             f"readings beside it, {ref_ms} ms")
-    check_times("bench_torch", {b: r["ms"] for b, r in batches.items()})
-    expect_counts(counts, scaled(DEFAULT_FWD, len(batches) * (
-        WARMUP + res["iters"])), "bench_torch")
-    return counts
-
-
-def flops_phase(card) -> dict:
-    """Phase 52; returns its launches."""
-    W, H = IMG_WH
-    n = MEASURE_ITERS["flops"]
-    reset_counts()
-    res = script("flops_report_torch").main(
-        ["--device", DEVICE, "--H", str(H), "--W", str(W), "--iters", str(n),
-         "--batch", *map(str, FLOPS_BATCHES)])
-    torch.cuda.synchronize()
-    counts = read_counts()
-    # the script raises unless the counted convolutions equal the analytic
-    conv1 = sum(res[1]["conv"].values())
-    print(f"flops phase: convolutions B=1 counted {conv1} = analytic (bound "
-          f"{CONV_FLOPS_B1} +- 1e-6 relative); "
-          + "; ".join(f"B={b} {r['total'] / 1e9!r} GFLOP, {r['ms']!r} ms, "
-                      f"{r.get('tflops')!r} TFLOP/s, {r.get('pct_peak')!r} % "
-                      "of 989 TFLOP/s" for b, r in res.items())
-          + f"; launches {counts} [{card}]")
-    if not abs(conv1 / CONV_FLOPS_B1 - 1.0) <= 1e-6 or any(
-            sum(r["conv"].values()) != b * conv1 for b, r in res.items()):
-        raise AssertionError(f"convolutions {res}")
-    check_times("flops", {b: r["ms"] for b, r in res.items()})
-    expect_counts(counts, scaled(DEFAULT_FWD, len(res) * (1 + WARMUP + n)),
-                  "flops_report_torch")
-    return counts
-
-
-def measured(what: str, run, want: dict) -> tuple:
-    """``run()`` with the launches counted, which must be ``want``;
-    returns (its result, the launches)."""
-    reset_counts()
-    res = run()
-    torch.cuda.synchronize()
-    counts = read_counts()
-    print(f"{what}: launches {counts}")
-    expect_counts(counts, want, what)
-    return res, counts
-
-
-def profile_phase(card) -> dict:
-    """Phase 53; returns the launches of each script's run."""
-    W, H = IMG_WH
-    size = ["--device", DEVICE, "--H", str(H), "--W", str(W)]
-    paths = {}
-    n = MEASURE_ITERS["stages"]
-    stages, paths["stages"] = measured(
-        "profile_stages_torch", lambda: script("profile_stages_torch").main(
-            size + ["--iters", str(n)]),
-        scaled(DEFAULT_FWD, 2 * (WARMUP + n)))
-    check_times("profile_stages_torch", stages)
-    full = next(v for k, v in stages.items() if k.startswith("FULL"))
-    print(f"stages B=2 {W}x{H}x3: sum of stages {stages['sum of stages']!r} "
-          f"ms beside the FULL cascade {full!r} ms (sum / full "
-          f"{stages['sum of stages'] / full!r}) [{card}]")
-    n = MEASURE_ITERS["bwd"]
-    bwd, paths["bwd"] = measured(
-        "profile_bwd_torch", lambda: script("profile_bwd_torch").main(
-            size + ["--iters", str(n)]),
-        scaled(DEFAULT_STEP, WARMUP + n))
-    check_times("profile_bwd_torch", bwd)
-    n = MEASURE_ITERS["train_step"]
-    for sampling, want, path in (("auto", DEFAULT_STEP, "train_step"),
-                                 ("quad", QUAD_STEP, "train_step_quad")):
-        step, paths[path] = measured(
-            f"profile_train_step_torch --sampling {sampling}",
-            lambda: script("profile_train_step_torch").main(
-                size + ["--iters", str(n), "--sampling", sampling]),
-            scaled(want, 1 + WARMUP + n))
-        check_times(path, {k: step[k] for k in ("ms", "samples_s")})
-    n = MEASURE_ITERS["eval_res"]
-    EW, EH = EVAL_WH
-    with mock.patch.dict(os.environ, {"ER_ORDER": "auto,quad",
-                                      "ER_ITERS": str(n)}):
-        views, paths["eval_res"] = measured(
-            "profile_eval_res_torch", lambda: script(
-                "profile_eval_res_torch").main(
-                ["--device", DEVICE, "--H", str(EH), "--W", str(EW)]),
-            summed(scaled(DEFAULT_FWD, WARMUP + n),
-                   scaled(QUAD_FWD, WARMUP + n)))
-    check_times("profile_eval_res_torch", {s: r["ms"] for s, r in
-                                           views.items()})
-    return paths
-
-
-def measure_path(card, phase6_ms: float) -> dict:
-    """Phases 51-53; returns each entry point's launches."""
-    t0 = time.perf_counter()
-    paths = {"bench": bench_phase(card, phase6_ms), "flops": flops_phase(card)}
-    t52 = time.perf_counter()
-    paths.update(profile_phase(card))
-    t53 = time.perf_counter()
-    print(f"measurement path (phases 51-53): {t53 - t0!r} s wall (51-52: "
-          f"{t52 - t0!r}, 53: {t53 - t52!r}) [{card}]")
-    return paths
 
 
 def kernel_line(name, source, replaces, launches_by_path, main_path,
@@ -3594,7 +3385,7 @@ def main() -> int:
     errs = {"cost_volume_cuda": check_kernel(kernel, plain, inputs)}
     k1.check({kernel.name: kernel}, DEVICE, cases=("eval",))
     paths = {"inference": check_forward(entry, plain)}
-    fwd_ms = time_forward(entry, card)
+    time_forward(entry, card)
     errs["cost_volume_bwd_cuda"] = check_bwd(kbwd, pbwd, inputs2)
     check_train_step(train_entry, plain, DEFAULT_STEP)
     trainer, state, batch, paths["train"] = train_main_path(
@@ -3650,7 +3441,6 @@ def main() -> int:
         paths.update(window_path(entry, train_entry, inputs, inputs2,
                                  eval_work, card))
     paths.update(quality_path(card))
-    paths.update(measure_path(card, fwd_ms[1]))
 
     # "launches" is the count of the kernel's main path (the default path's
     # training run for K1 and K2, the quad configuration's for #3-#6, the
@@ -3668,8 +3458,7 @@ def main() -> int:
                      "tanks_eval", "bmvs_eval", "demo", "demo_jax",
                      "eval_converted", "window_inference", "window_train",
                      "window_eval", "quality_fit", "quality_fit_jax",
-                     "quality_cloud", "bench", "flops", "stages", "bwd",
-                     "train_step", "train_step_quad", "eval_res")
+                     "quality_cloud")
     g8_paths = ("quad_g8_inference", "quad_g8_train")
     csrc = "casmvsnet_pl_tpu_torch/csrc/"
     pe = "casmvsnet_pl_tpu/kernels/patch_epilogue.py:"

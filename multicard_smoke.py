@@ -57,6 +57,8 @@ import torch
 
 import chip_smoke
 from casmvsnet_pl_tpu_torch.data import DTUDataset
+from casmvsnet_pl_tpu_torch.kernels import (cost_volume_cuda, launch_counts,
+                                            reset_launches)
 
 DEVICE = "cuda"
 IMG_WH = chip_smoke.IMG_WH
@@ -166,7 +168,7 @@ def replica_rank(rank: int, world: int, device, spec: dict) -> None:
     trainer, state, batch = train_entry(
         device, spec["dtype"], batch=PER_CARD * world, img_wh=spec["img_wh"],
         n_depths=spec["n_depths"], optimizer="adam", lr=1e-3)
-    chip_smoke.reset_counts()
+    reset_launches()
     issued = []
     all_reduce = dist.all_reduce
 
@@ -192,7 +194,7 @@ def replica_rank(rank: int, world: int, device, spec: dict) -> None:
                    state.model.named_parameters()},
         "buffers": {k: b.detach().cpu() for k, b in
                     state.model.named_buffers()},
-        "launches": chip_smoke.read_counts()}, f"{spec['out']}.{rank}")
+        "launches": launch_counts()}, f"{spec['out']}.{rank}")
 
 
 def replicas(work: str, cards: int, card: str) -> None:
@@ -565,7 +567,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     card = report()
-    chip_smoke.build_kernel(chip_smoke.all_kernels()["cost_volume_cuda"])
+    chip_smoke.build_kernel(cost_volume_cuda)
     with tempfile.TemporaryDirectory(prefix="multicard_smoke_") as work:
         for name, phase in PHASES.items():
             t = time.perf_counter()

@@ -29,6 +29,7 @@ import torch
 
 import chip_smoke
 import eval_torch
+from casmvsnet_pl_tpu_torch import kernels
 from casmvsnet_pl_tpu_torch.data import PlaneScene
 from casmvsnet_pl_tpu_torch.engine import convergence
 from casmvsnet_pl_tpu_torch.fusion import write_ply
@@ -173,7 +174,7 @@ def test_chip_smoke_quality_phases_rehearse_on_cpu(monkeypatch, capsys):
     assert os.getcwd() == cwd
     # 8 steps, 3 val batches before, after the epoch and after the fit,
     # one train panel (phase 49's fit only); 5 views of 64x64
-    none = {n: 0 for n in chip_smoke.all_kernels()}
+    none = dict.fromkeys(kernels.launch_counts(), 0)
     assert paths == {
         "quality_fit": {**none, "cost_volume_cuda": 3 * (8 + 3 * 3 + 1),
                         "cost_volume_bwd_cuda": 3 * 8,

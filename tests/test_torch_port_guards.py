@@ -17,6 +17,8 @@ import sys
 import pytest
 import torch
 
+from casmvsnet_pl_tpu_torch.kernels import launch_counts
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -128,21 +130,134 @@ def test_bwd_kernel_refuses_cpu_tensors():
     assert cost_volume_bwd_cuda.launches == 0
 
 
-def _all_launches():
+def test_launch_registry_is_every_exported_kernel():
+    """The library's registry holds exactly the ``*_cuda`` wrappers that
+    ``kernels/__init__.py`` exports, each bound to it, with a count."""
     from casmvsnet_pl_tpu_torch import kernels
-    return [getattr(kernels, n).launches for n in sorted(dir(kernels))
-            if n.endswith("_cuda")]
+
+    exported = {n: getattr(kernels, n) for n in dir(kernels)
+                if n.endswith("_cuda")}
+    registry = kernels.LIBRARY.kernels
+    assert set(registry) == set(exported)
+    assert all(registry[n] is k and k.library is kernels.LIBRARY
+               and k.name == n for n, k in exported.items())
+    assert all(isinstance(k.launches, int) for k in registry.values())
+    assert set(launch_counts()) == set(exported)
+
+
+def test_reset_launches_zeroes_every_count():
+    from casmvsnet_pl_tpu_torch import kernels
+
+    registry = kernels.LIBRARY.kernels
+    saved = {n: k.launches for n, k in registry.items()}
+    try:
+        for i, kernel in enumerate(registry.values()):
+            kernel.launches = i + 1
+        assert launch_counts() == {n: i + 1 for i, n in enumerate(registry)}
+        kernels.reset_launches()
+        assert launch_counts() == dict.fromkeys(registry, 0)
+        assert all(k.launches == 0 for k in registry.values())
+    finally:
+        for n, count in saved.items():
+            registry[n].launches = count
+
+
+def test_kernels_register_by_name_with_their_own_library():
+    """A kernel of another library, as ``probes/k1.py``'s K1 of an earlier
+    tree is, stays out of the port's counts; a second kernel of a name
+    already bound to a library raises. Construction builds nothing."""
+    from casmvsnet_pl_tpu_torch.kernels.cost_volume import CostVolumeKernel
+    from casmvsnet_pl_tpu_torch.kernels.library import (LIBRARY,
+                                                        KernelLibrary)
+    from casmvsnet_pl_tpu_torch.probes import k1
+
+    before = launch_counts()
+    other = KernelLibrary()
+    parent = CostVolumeKernel(other, "parent", "cost_volume_fwd_parent")
+    assert other.kernels == {"parent": parent}
+    assert other.launch_counts() == {"parent": 0}
+    assert launch_counts() == before
+    with pytest.raises(ValueError, match="'parent' is already bound"):
+        CostVolumeKernel(other, "parent", "cost_volume_fwd")
+    with pytest.raises(ValueError, match="'cost_volume_cuda' is already"):
+        CostVolumeKernel(LIBRARY, "cost_volume_cuda", "cost_volume_fwd")
+    assert list(other.kernels) == ["parent"]
+    assert launch_counts() == before
+    assert issubclass(k1._Library, KernelLibrary)
+
+
+def _module_name(path: str) -> list[str]:
+    parts = os.path.relpath(path, REPO)[:-len(".py")].split(os.sep)
+    return parts[:-1] if parts[-1] == "__init__" else parts
+
+
+def _imports_from(path: str):
+    """(absolute module, name) of each ``from ... import name`` in the
+    source at ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    package = _module_name(path)
+    if not path.endswith("__init__.py"):
+        package = package[:-1]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            for alias in node.names:
+                yield module, alias.name
+
+
+def test_kernel_library_is_imported_from_library_py():
+    """What every kernel shares is imported from ``kernels/library.py``:
+    no module of the package, nor ``chip_smoke.py`` or
+    ``multicard_smoke.py``, imports it from ``kernels/cost_volume.py``; no
+    module of ``kernels/`` but ``__init__.py`` imports from
+    ``cost_volume.py``; and none imports an underscore name from a module
+    of ``kernels/``."""
+    pkg = os.path.join(REPO, "casmvsnet_pl_tpu_torch")
+    kdir = os.path.join(pkg, "kernels")
+    with open(os.path.join(kdir, "library.py")) as f:
+        tree = ast.parse(f.read())
+    owned = {n.name for n in tree.body if isinstance(
+        n, (ast.FunctionDef, ast.ClassDef))}
+    owned |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)}
+    assert {"Kernel", "KernelLibrary", "LIBRARY", "check_device",
+            "check_layout", "find_nvcc", "DTYPE_CODES", "NVCC_FLAGS",
+            "BUILD_DIR", "CSRC_DIR"} <= owned
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    files += [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                              "multicard_smoke.py")]
+    cost_volume = "casmvsnet_pl_tpu_torch.kernels.cost_volume"
+    bad = []
+    for path in files:
+        in_kernels = os.path.dirname(path) == kdir
+        for module, name in _imports_from(path):
+            if module == cost_volume and (name in owned or (
+                    in_kernels and not path.endswith("__init__.py"))):
+                bad.append((path, module, name))
+            if module.startswith("casmvsnet_pl_tpu_torch.kernels") \
+                    and name.startswith("_"):
+                bad.append((path, module, name))
+    assert len(files) > 60
+    assert not bad, bad
+    with open(os.path.join(kdir, "cost_volume.py")) as f:
+        defined = {n.name for n in ast.parse(f.read()).body if isinstance(
+            n, (ast.FunctionDef, ast.ClassDef))}
+    assert not defined & owned, defined & owned
 
 
 def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
-    before = _all_launches()
+    before = launch_counts()
     assert len(before) == 19          # with TransMVSNet's DCN and FMT layer
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)
-    assert _all_launches() == before
+    assert launch_counts() == before
     assert depth.shape == (1, 32, 64) and conf.shape == (1, 8, 16)
     assert torch.isfinite(depth).all() and torch.isfinite(conf).all()
 
@@ -153,9 +268,9 @@ def test_quad_train_entry_steps_on_cpu_without_kernels():
     trainer, state, batch = train_entry("cpu", img_wh=(64, 32),
                                         n_depths=(8, 8, 8), sampling="quad",
                                         num_groups=8)
-    before = _all_launches()
+    before = launch_counts()
     state, logs = trainer.train_step(state, batch)
-    assert _all_launches() == before
+    assert launch_counts() == before
     assert state.step == 1
     assert all(math.isfinite(float(v)) for v in logs.values())
     grads = [p.grad for p in state.model.parameters()]
@@ -199,10 +314,10 @@ def test_warp_runs_on_cpu_without_kernels():
     proj.requires_grad_(True)
     dv = torch.linspace(430.0, 450.0, 4)[None, :, None, None].repeat(
         2, 1, 12, 16).requires_grad_(True)
-    before = _all_launches()
+    before = launch_counts()
     out = warp_src_quad_batched(pack_quad(feats), proj, dv, 12, 16)
     out.square().sum().backward()
-    assert _all_launches() == before
+    assert launch_counts() == before
     assert out.shape == (2, 4, 12, 16, 8)
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (feats, proj, dv))
@@ -215,9 +330,9 @@ def test_window_sampling_raises():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     fn, args = entry("cpu", img_wh=(64, 32), sampling="window")
-    before = _all_launches()
+    before = launch_counts()
     depth, conf = fn(*args)
-    assert _all_launches() == before
+    assert launch_counts() == before
     assert depth.shape == (1, 32, 64) and conf.shape == (1, 8, 16)
     assert torch.isfinite(depth).all() and torch.isfinite(conf).all()
 
@@ -278,7 +393,7 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
     from casmvsnet_pl_tpu_torch.ops import cost_epilogue as ce
     from casmvsnet_pl_tpu_torch.probes import epi2, epi3, epi5, gather
 
-    before = _all_launches()
+    before = launch_counts()
     ref, rows, ws = (torch.rand(1, 8, 8), torch.rand(1, 2, 4, 8, 32),
                      torch.rand(1, 2, 4, 8, 4))
     plain = ce.plain_variance_epilogue(ref, rows, ws)
@@ -292,7 +407,7 @@ def test_probe_dispatchers_take_cpu_tensors_to_plain_versions():
     rowsT, fx = torch.rand(2, 128, 64), torch.rand(2, 8, 64) * 3
     assert torch.equal(epi5.patch_epilogue_t(rowsT, fx, fx),
                        epi5.plain_patch_epilogue_t(rowsT, fx, fx))
-    assert _all_launches() == before
+    assert launch_counts() == before
 
 
 def _script_imports_nothing_banned(script, banned=BANNED):

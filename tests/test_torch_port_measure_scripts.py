@@ -2,19 +2,17 @@
 ``scripts/{flops_report,profile_stages,profile_bwd,profile_train_step,
 profile_eval_res}_torch.py``, each through its ``main`` at a small size
 with ``--device cpu``, printing the JAX script's labels; without a card
-each raises; and ``chip_smoke.py``'s phases 51-53 rehearsed on the CPU
-(the card's calls stubbed, no kernel launches expected, every other check
-of the phases run)."""
+each raises."""
+import importlib
 import json
-import math
 import os
+import sys
 
 import pytest
 import torch
 
 import bench
 import bench_torch
-import chip_smoke
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--device", "cpu", "--H", "64", "--W", "96"]
@@ -31,9 +29,14 @@ def one_thread():
 
 
 def script(name: str):
+    """``bench_torch``, or a measurement script of ``scripts/`` as a
+    module."""
     if name == "bench_torch":
         return bench_torch
-    return chip_smoke.script(name)
+    scripts = os.path.join(REPO, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
 
 
 def jax_source(name: str) -> str:
@@ -148,46 +151,3 @@ def test_entry_points_raise_without_a_card(monkeypatch, name, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         script(name).main(argv)
-
-
-class _Event:
-    def __init__(self, **kw):
-        pass
-
-    def record(self):
-        pass
-
-    def elapsed_time(self, other):
-        return 1.0
-
-
-def test_chip_smoke_measure_phases_rehearse_on_cpu(monkeypatch, capsys):
-    """Phases 51-53 end to end on the CPU at 96x64 (the eval view 64x64x5),
-    bench_torch in its smoke mode, one timed call a script."""
-    for name, value in (("DEVICE", "cpu"), ("IMG_WH", (96, 64)),
-                        ("EVAL_WH", (64, 64)), ("DEFAULT_FWD", {}),
-                        ("DEFAULT_STEP", {}), ("QUAD_FWD", {}),
-                        ("QUAD_STEP", {}), ("BENCH_BATCHES", (1,)),
-                        ("BENCH_TOL", math.inf), ("FLOPS_BATCHES", (1, 2)),
-                        ("CONV_FLOPS_B1", 1837891584),
-                        ("MEASURE_ITERS", dict.fromkeys(
-                            chip_smoke.MEASURE_ITERS, 1))):
-        monkeypatch.setattr(chip_smoke, name, value)
-    for name, value in (("synchronize", lambda *a: None), ("Event", _Event)):
-        monkeypatch.setattr(torch.cuda, name, value)
-    paths = chip_smoke.measure_path("cpu rehearsal", 1.0)
-    assert set(paths) == {"bench", "flops", "stages", "bwd", "train_step",
-                          "train_step_quad", "eval_res"}
-    assert all(n == 0 for counts in paths.values() for n in counts.values())
-    out = capsys.readouterr().out
-    for what in ('bench_torch: {"metric": "depth_maps_per_sec_per_chip_'
-                 '640x512_3views"',
-                 "bench_torch phase: batches [1]",
-                 "flops phase: convolutions B=1 counted 1837891584",
-                 "stages B=2 96x64x3: sum of stages",
-                 "feature fwd+bwd",
-                 "train_step sampling=quad: ",
-                 "eval-res forward 64x64 5 views [quad]",
-                 "profile_eval_res_torch: launches",
-                 "measurement path (phases 51-53)"):
-        assert what in out, what

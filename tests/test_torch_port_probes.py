@@ -94,11 +94,6 @@ def views(a):
     return tuple(jnp.asarray(a[:, v]) for v in range(a.shape[1]))
 
 
-def launches():
-    return {n: getattr(kernels, n).launches for n in dir(kernels)
-            if n.endswith("_cuda")}
-
-
 @pytest.mark.parametrize("dblk", [1, 4, 8])
 @pytest.mark.parametrize("C", [8, 16])
 def test_variance_dblk_matches_probe(C, dblk):
@@ -106,10 +101,10 @@ def test_variance_dblk_matches_probe(C, dblk):
     mode, T=128) and against ``kernel_cost_epilogue.variance_epilogue``."""
     ref, rows, ws = epilogue_inputs(C, C + dblk)
     pe2.dtype = jnp.float32
-    before = launches()
+    before = kernels.launch_counts()
     got = epi2.variance_dblk(*(torch.from_numpy(a) for a in (ref, rows, ws)),
                              dblk)
-    assert launches() == before
+    assert kernels.launch_counts() == before
     assert got.shape == (B, D, HW, C) and got.dtype == torch.float32
     with pltpu.force_tpu_interpret_mode():
         probe = pe2.variance_dblk(jnp.asarray(ref), views(rows), views(ws),
@@ -147,9 +142,9 @@ def test_lane_prefix_copy_matches_probe(C, dtype):
                        getattr(jnp, dtype))
     trows = torch.from_numpy(np.array(rows.astype(jnp.float32))).to(
         getattr(torch, dtype))
-    before = launches()
+    before = kernels.launch_counts()
     got = epi3.lane_prefix_copy(trows)
-    assert launches() == before
+    assert kernels.launch_counts() == before
     assert got.dtype == trows.dtype and got.is_contiguous()
     assert torch.equal(got, trows[..., :C])
     pe3.dtype = getattr(jnp, dtype)
@@ -175,10 +170,10 @@ def test_patch_epilogue_t_matches_probe(Ch):
     """#12: against the probe's ``pallas_epilogue`` (interpret mode,
     T=128) and its ``tfma_epilogue``, through the (B, D, hw, C) layout."""
     rowsT, fx, fy = transposed_inputs(Ch, 40 + Ch)
-    before = launches()
+    before = kernels.launch_counts()
     got = epi5.transposed_epilogue(*(torch.from_numpy(a)
                                      for a in (rowsT, fx, fy)))
-    assert launches() == before
+    assert kernels.launch_counts() == before
     assert got.shape == (B, 8, HW, Ch) and got.dtype == torch.float32
     plain = epi5.plain_patch_epilogue_t(
         *(torch.from_numpy(a.reshape(B, -1, HW)) for a in (rowsT, fx, fy)))
@@ -239,12 +234,12 @@ def test_row_and_lane_gathers_match_probe():
     featT = rng.rand(8, 1024).astype(np.float32)
     idx_lane = rng.randint(0, 1024, (128,)).astype(np.int32)
     tfeat, tidx = torch.from_numpy(feat), torch.from_numpy(idx).long()
-    before = launches()
+    before = kernels.launch_counts()
     got = gather.row_gather(tfeat, tidx)
     forms = gather.check_forms(tfeat, tidx)
     got_lane = gather.lane_gather(torch.from_numpy(featT),
                                   torch.from_numpy(idx_lane).long())
-    assert launches() == before
+    assert kernels.launch_counts() == before
     with pltpu.force_tpu_interpret_mode():
         for name in ("k_take", "k_tala", "k_onehot", "k_dynslice"):
             probe = pl.pallas_call(getattr(pg, name), out_shape=jax.
