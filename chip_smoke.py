@@ -323,6 +323,20 @@ no TPU counterpart):
      layers timed in bf16 against the plain layers in turns, beside their
      bound (``perfbench/counts/fmt_layer.py``).
 
+CostRegNet's input block at one input channel, the 3x3x3 conv 1 -> 8 with
+eval BatchNorm and leaky ReLU 0.01 (``csrc/in_conv.cu``, no TPU
+counterpart):
+ 57. (run after phase 56) the kernel against its plain version
+     (``ops/in_conv.py::plain_in_conv``, TF32 off) at eval's three level
+     shapes (1152x864, B=1), BatchNorm statistics drawn far from the
+     identity: f32 within 2^-14 of the terms (sum |w x| |scale| + |mean
+     scale| + |beta|), bf16 within one bf16 ulp of the f32 block of the
+     same bf16 values (or that f32 bound); then timed in bf16 against
+     cuDNN's conv + BatchNorm + leaky ReLU (the plain version and the
+     library calls it replaced) in turns, beside its bound
+     (``perfbench/counts/in_conv.py``). TransMVSNet's forward (phase 55's
+     path) launches it once a level; no CasMVSNet path launches it.
+
 Every cascade forward on the card launches the prob conv's kernel once a
 level, and every path's launches count it beside K1 (or #3/#5). A plain
 forward held against a kernel forward (phases 5, 31, 39, 41) takes
@@ -396,11 +410,11 @@ QUAD_STEP = {"variance_epilogue_cuda": 3, "variance_epilogue_bwd_cuda": 3,
 G8_FWD = {"groupwise_epilogue_cuda": 3, **PROB}
 G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3,
            **PROB}
-# TransMVSNet's forward: K1 (its one-group correlation) and the prob conv
-# once a level, the ARF's three deformable convs a level, the FMT's eight
-# layers at two launches each
+# TransMVSNet's forward: K1 (its one-group correlation), CostRegNet's
+# one-channel input block and the prob conv once a level, the ARF's three
+# deformable convs a level, the FMT's eight layers at two launches each
 TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9,
-             "fmt_layer_cuda": 16, **PROB}
+             "fmt_layer_cuda": 16, "in_conv_cuda": 3, **PROB}
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
 
@@ -1237,6 +1251,108 @@ def fmt_layer_phase(card) -> tuple[float, tuple]:
     k_ms, p_ms = sums["fmt_layer"][:2]
     torch.cuda.empty_cache()
     return err32, (k_ms, p_ms, b_ms, "bytes")
+
+
+# --- CostRegNet's one-channel input block: conv 1 -> 8, BN, leaky (57) -----
+
+# float32: x and the weights go into the tensor cores as bf16 hi + lo, each
+# product within 3 x 2^-16 of its size, the sums float32: within 2^-14 of
+# the terms' sizes (tests/test_torch_port_in_conv.py); bf16: exact products,
+# one rounding of the float32 sum
+IN_CONV_TOL = 2.0 ** -14
+
+
+def in_conv_block(g, dtype):
+    """``ConvBnAct(1, 8)`` in eval mode on the card: weight N(0, 1/27),
+    BatchNorm's gamma +-U(0.5, 2), beta and mean N(0, 0.5), var U(0.25, 4)."""
+    from casmvsnet_pl_tpu_torch.models.blocks import ConvBnAct
+    m = ConvBnAct(1, 8, dims=3).eval().to(DEVICE)
+    sign = torch.tensor([1.0, -1.0] * 4, device=DEVICE)
+    with torch.no_grad():
+        m.conv.weight.copy_(torch.randn((8, 1, 3, 3, 3), generator=g,
+                                        device=DEVICE) * 27 ** -0.5)
+        m.bn.weight.copy_((0.5 + 1.5 * torch.rand(8, generator=g,
+                                                  device=DEVICE)) * sign)
+        m.bn.bias.copy_(0.5 * torch.randn(8, generator=g, device=DEVICE))
+        m.bn.running_mean.copy_(0.5 * torch.randn(8, generator=g,
+                                                  device=DEVICE))
+        m.bn.running_var.copy_(0.25 + 3.75 * torch.rand(8, generator=g,
+                                                        device=DEVICE))
+    return m.to(dtype)
+
+
+def in_conv_phase(card) -> tuple[float, tuple]:
+    """Phase 57: the input block's kernel against ``plain_in_conv`` at
+    eval's three level shapes (f32; bf16 x and parameters against the f32
+    block of the same bf16 values), then timed in bf16 against cuDNN's
+    conv + BatchNorm + leaky ReLU in turns, beside its bound. Returns the
+    largest f32 error and the sums over the three levels: (kernel ms, plain
+    ms, bound ms, what sets it)."""
+    import torch.nn.functional as F
+    from casmvsnet_pl_tpu_torch.kernels import in_conv_cuda
+    from casmvsnet_pl_tpu_torch.ops.in_conv import in_conv, plain_in_conv
+    from perfbench.counts.in_conv import in_conv_bound_s, in_conv_work
+
+    def terms(x, m):
+        scale = (m.bn.weight.float()
+                 / torch.sqrt(m.bn.running_var.float() + m.bn.eps))
+        conv = F.conv3d(x.float().abs(), m.conv.weight.float().abs(), None,
+                        1, 1)
+        return (conv * scale.abs().view(1, 8, 1, 1, 1)
+                + (m.bn.running_mean.float() * scale).abs().view(1, 8, 1, 1, 1)
+                + m.bn.bias.float().abs().view(1, 8, 1, 1, 1))
+
+    g = torch.Generator(device=DEVICE).manual_seed(57)
+    worst, sums, least_ms, bound_by = 0.0, {}, 0.0, []
+    for l, _, D, h, w in levels(EVAL_WH):
+        x = torch.randn((1, D, h, w, 1), generator=g,
+                        device=DEVICE).permute(0, 4, 1, 2, 3)
+        m = in_conv_block(g, torch.float32)
+        with torch.no_grad():
+            err = (in_conv(x, m.conv, m.bn)
+                   - plain_in_conv(x, m.conv, m.bn)).abs()
+            over32 = (err > IN_CONV_TOL * terms(x, m)).sum().item()
+            err32 = err.max().item()
+            worst = max(worst, err32)
+            del err
+            xb, mb = x.to(torch.bfloat16), copy.deepcopy(m).to(torch.bfloat16)
+            m.load_state_dict({k: v.float() for k, v in
+                               mb.state_dict().items()})
+            ref = plain_in_conv(xb.float(), m.conv, m.bn)
+            tol = torch.maximum(IN_CONV_TOL * terms(xb, m), bf16_ulp(ref))
+            got = in_conv(xb, mb.conv, mb.bn)
+            layout = got.is_contiguous(memory_format=torch.channels_last_3d)
+            eb = (got.float() - ref).abs()
+            ulps = (eb / bf16_ulp(ref)).max().item()
+            over16 = (eb > tol).sum().item()
+            del got, ref, tol, eb, x
+        print(f"in-conv-check L{l} (B, D, h, w) {(1, D, h, w)}: f32 "
+              f"max_abs_err={err32!r}, values beyond {IN_CONV_TOL!r} x "
+              f"terms {over32}; bf16: max ulps of the f32 block {ulps!r}, "
+              f"values beyond one ulp and the f32 bound "
+              f"{over16}/{8 * D * h * w}; channels_last_3d {layout}")
+        if over32 or over16 or not layout:
+            raise AssertionError(f"in conv L{l} differs from its plain "
+                                 "version")
+        b_s, by = in_conv_bound_s(1, D, h, w, 2)
+        least_ms += 1e3 * b_s
+        bound_by.append(f"L{l} {by}")
+        with torch.no_grad():
+            time_level(sums, "in_conv", f"L{l} bf16 {(1, 1, D, h, w)}",
+                       lambda: in_conv_cuda(xb, mb.conv.weight, mb.bn.weight,
+                                            mb.bn.bias, mb.bn.running_mean,
+                                            mb.bn.running_var, mb.bn.eps),
+                       lambda: plain_in_conv(xb, mb.conv, mb.bn), (50, 10),
+                       in_conv_work(1, D, h, w, 2), card,
+                       "plain = cuDNN conv + BN + leaky; ", (1e3 * b_s, by))
+        del xb
+        torch.cuda.empty_cache()
+    k_ms, p_ms = sums["in_conv"][:2]
+    by = ", ".join(bound_by)
+    print(f"in_conv, sum over the 3 level shapes: kernel {k_ms!r} ms, "
+          f"cuDNN conv + BN + leaky {p_ms!r} ms; bound {least_ms!r} ms ({by}) "
+          f"-> {100 * least_ms / k_ms!r} % [{card}]")
+    return worst, (k_ms, p_ms, least_ms, by)
 
 
 def transmvsnet_path(entry) -> dict:
@@ -3416,6 +3532,7 @@ def main() -> int:
     errs["prob_conv_cuda"], prob_times = prob_conv_phase(card)
     errs["deform_conv_cuda"], dcn_times = deform_conv_phase(card)
     errs["fmt_layer_cuda"], fmt_times = fmt_layer_phase(card)
+    errs["in_conv_cuda"], in_conv_times = in_conv_phase(card)
     paths["transmvsnet"] = transmvsnet_path(entry)
     profile_paths(entry, train_entry, card)
 
@@ -3523,6 +3640,14 @@ def main() -> int:
         "transmvsnet", errs["fmt_layer_cuda"], fmt_times,
         "bf16 views, the FMT's 8 layers (4 self, 4 cross) over 5 views of "
         "62,208 tokens at 1152x864"))
+    # the one-channel input block: no TPU kernel; cuDNN's conv, BatchNorm
+    # and leaky ReLU are its plain version and the library calls it replaced
+    lines.append(kernel_line(
+        "in_conv", csrc + "in_conv.cu", None,
+        by_path("in_conv_cuda", default_paths + g8_paths + ("transmvsnet",)),
+        "transmvsnet", errs["in_conv_cuda"], in_conv_times,
+        "bf16 x and parameters B=1 (eval), sum over the 3 level shapes",
+        in_conv_times[1]))
     all_paths = default_paths + g8_paths + ("warp", "probes")
     summary = probe_summary(probe_results)
     for name, source, line in (

@@ -253,7 +253,7 @@ def test_quad_entry_runs_on_cpu_without_kernels():
     from casmvsnet_pl_tpu_torch.entry import entry
 
     before = launch_counts()
-    assert len(before) == 19          # with TransMVSNet's DCN and FMT layer
+    assert len(before) == 20    # with TransMVSNet's DCN, FMT layer, in conv
     fn, args = entry("cpu", img_wh=(64, 32), sampling="quad")
     assert args[0].sampling == "quad"
     depth, conf = fn(*args)
