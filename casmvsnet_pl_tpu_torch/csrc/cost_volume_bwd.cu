@@ -1,6 +1,7 @@
 // Backward of the fused plane-sweep cost volume (cost_volume.cu) for Hopper
 // (sm_90a): the gradient with respect to the features, for the variance and
-// the groupwise combine. The projected coordinates get no gradient, as in
+// the groupwise combine (G = 1 included: TransMVSNet's one-channel
+// correlation). The projected coordinates get no gradient, as in
 // the JAX package, which stops it at ops/plane_sweep.py::_patch_view.
 //
 // Replaces, on the TPU side:
@@ -14,7 +15,8 @@
 // of the output at (b, d, pixel)):
 //   variance:   d ref += g * (2/V) * (ref - m)   summed over d;
 //               d o_v  = g * (2/V) * (o_v - m)   spread onto o_v's 4 taps;
-//   groupwise:  with k = C/G and g_c = g[c / k] / (k * (V-1)),
+//   groupwise:  with k = C/G and g_c = g[c / k] / (k * (V-1)) (G = 1:
+//               g_c = g / (C (V-1))),
 //               d ref[c] += g_c * sum_v o_v[c]   summed over d;
 //               d o_v[c]  = g_c * ref[c]         spread onto o_v's 4 taps.
 // Each sample is recomputed from feats, proj and depth exactly as the
@@ -63,9 +65,10 @@ using namespace cv;
 constexpr int kThreads = 128;
 constexpr int kN = 8;  // channels per thread
 
-// G == 1: variance. G > 1: groupwise correlation. S: 2 for variance at
-// V = 3 (samples cached in registers, runs), else 0 (runtime V).
-template <typename T, int C, int G, int S>
+// Var: variance (G == 1). Otherwise the groupwise correlation with G
+// groups, G = 1 included. S: 2 for variance at V = 3 (samples cached in
+// registers, runs), else 0 (runtime V).
+template <typename T, int C, int G, int S, bool Var>
 __global__ void __launch_bounds__(kThreads)
     cost_volume_bwd_kernel(const T* __restrict__ feats,
                            const float* __restrict__ proj,
@@ -74,8 +77,9 @@ __global__ void __launch_bounds__(kThreads)
                            float* __restrict__ grad, int V, int H, int W,
                            int D) {
   static_assert(C % G == 0 && C % kN == 0, "bad (C, G)");
-  static_assert(S == 0 || (S == 2 && G == 1), "S is 2 (variance) or 0");
-  constexpr bool kVariance = G == 1;
+  static_assert(!Var || G == 1, "a variance has one group");
+  static_assert(S == 0 || (S == 2 && Var), "S is 2 (variance) or 0");
+  constexpr bool kVariance = Var;
   constexpr int kOut = kVariance ? C : G;
   constexpr int kChunks = C / kN;
   constexpr int kPer = C / G;
@@ -241,7 +245,7 @@ __global__ void __launch_bounds__(kThreads)
   store_row<float, kN>(gb + pix * C + c0, dref);
 }
 
-template <typename T, int C, int G, int S>
+template <typename T, int C, int G, int S, bool Var>
 int launch(const void* feats, const void* proj, const void* depth,
            const void* grad_out, void* grad, int B, int V, int H, int W,
            int D, cudaStream_t stream) {
@@ -249,7 +253,7 @@ int launch(const void* feats, const void* proj, const void* depth,
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff || B > 65535) return kBadShape;
   const dim3 grid(static_cast<unsigned>(blocks), B);
-  cost_volume_bwd_kernel<T, C, G, S><<<grid, kThreads, 0, stream>>>(
+  cost_volume_bwd_kernel<T, C, G, S, Var><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(feats), static_cast<const float*>(proj),
       static_cast<const float*>(depth), static_cast<const T*>(grad_out),
       static_cast<float*>(grad), V, H, W, D);
@@ -259,27 +263,36 @@ int launch(const void* feats, const void* proj, const void* depth,
 }  // namespace
 
 // feats (B, V, H, W, C) of dtype (0: float32, 1: bfloat16); proj
-// (B, V-1, 3, 4) f32; depth (B, D, H, W) f32; grad_out (B, D, H, W, C if
-// G == 1 else G) of the feats dtype; grad (B, V, H, W, C) f32, zeroed by the
-// caller. All contiguous and 16-byte aligned. Adds the gradient with
+// (B, V-1, 3, 4) f32; depth (B, D, H, W) f32; kind 0: the variance (G ==
+// 1), grad_out (B, D, H, W, C); kind 1: the groupwise correlation with G
+// groups (1, 2, 4 or 8), grad_out (B, D, H, W, G); grad_out of the feats
+// dtype; grad (B, V, H, W, C) f32, zeroed by the caller. All contiguous and 16-byte aligned. Adds the gradient with
 // respect to feats into grad. Returns 0, a cudaError_t from the launch, or
 // a negative code of sampling.cuh (cost_volume_error_string names it).
 static int cost_volume_bwd_typed(const void* feats, const void* proj,
                                  const void* depth, const void* grad_out,
                                  void* grad, int B, int V, int H, int W, int D,
-                                 int C, int G, int dtype, void* stream) {
+                                 int C, int G, int kind, int dtype,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind != 0 && kind != 1) return cv::kUnsupported;
   return cv::dispatch(dtype, C, G, [&](auto t, auto c, auto g) {
     using T = typename decltype(t)::type;
     constexpr int kC = decltype(c)::value, kG = decltype(g)::value;
+    if (kind == 1) {
+      return launch<T, kC, kG, 0, false>(feats, proj, depth, grad_out, grad,
+                                         B, V, H, W, D, st);
+    }
     if constexpr (kG == 1) {
       if (V == 3) {
-        return launch<T, kC, 1, 2>(feats, proj, depth, grad_out, grad, B, V,
-                                   H, W, D, st);
+        return launch<T, kC, 1, 2, true>(feats, proj, depth, grad_out, grad,
+                                         B, V, H, W, D, st);
       }
+      return launch<T, kC, 1, 0, true>(feats, proj, depth, grad_out, grad, B,
+                                       V, H, W, D, st);
+    } else {
+      return cv::kUnsupported;
     }
-    return launch<T, kC, kG, 0>(feats, proj, depth, grad_out, grad, B, V, H,
-                                W, D, st);
   });
 }
 

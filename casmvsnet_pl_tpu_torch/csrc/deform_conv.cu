@@ -1,6 +1,7 @@
 // The modulated deformable 3x3 convolution (DCNv2) of TransMVSNet's ARF
 // (models/transmvsnet.py, ops/deform_conv.py), stride 1, padding 1,
-// dilation 1, no bias, C -> C channels, forward only, for Hopper (sm_90a).
+// dilation 1, no bias, C -> C channels, forward only, for Hopper (sm_90a);
+// its backward is deform_conv_bwd.cu.
 //
 // Replaces no TPU kernel: the JAX package has no TransMVSNet.
 //
@@ -57,41 +58,6 @@ template <int C>
 struct DcnTune {
   static constexpr int kPix = 2;
 };
-
-// The 4 bilinear taps of (sy, sx) in an H x W image: each tap's pixel
-// index and weight, in the order y0x0, y0x1, y1x0, y1x1; a tap outside the
-// image reads pixel 0 with weight 0. The tests are on the float
-// coordinates, so far-outside or NaN coordinates never index memory.
-struct Corners {
-  int q[4];
-  float w[4];
-};
-
-__device__ __forceinline__ Corners corners_at(float sy, float sx, int H,
-                                              int W) {
-  const float x0 = floorf(sx), y0 = floorf(sy);
-  const float wx1 = sx - x0, wy1 = sy - y0;
-  const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-  const bool cx0 = x0 >= 0.f && x0 <= static_cast<float>(W - 1);
-  const bool cx1 = x0 >= -1.f && x0 <= static_cast<float>(W - 2);
-  const bool cy0 = y0 >= 0.f && y0 <= static_cast<float>(H - 1);
-  const bool cy1 = y0 >= -1.f && y0 <= static_cast<float>(H - 2);
-  // in range wherever a tap is used; elsewhere saturated and wrapped
-  // (unsigned), never undefined
-  const int q0 = static_cast<int>(
-      static_cast<unsigned>(__float2int_rz(y0)) * static_cast<unsigned>(W) +
-      static_cast<unsigned>(__float2int_rz(x0)));
-  Corners c;
-  c.q[0] = cx0 && cy0 ? q0 : 0;
-  c.q[1] = cx1 && cy0 ? q0 + 1 : 0;
-  c.q[2] = cx0 && cy1 ? q0 + W : 0;
-  c.q[3] = cx1 && cy1 ? q0 + W + 1 : 0;
-  c.w[0] = cx0 && cy0 ? wy0 * wx0 : 0.f;
-  c.w[1] = cx1 && cy0 ? wy0 * wx1 : 0.f;
-  c.w[2] = cx0 && cy1 ? wy1 * wx0 : 0.f;
-  c.w[3] = cx1 && cy1 ? wy1 * wx1 : 0.f;
-  return c;
-}
 
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)

@@ -1,10 +1,11 @@
 // Device helpers shared by the cost-volume kernels (cost_volume.cu, the
 // forward, and cost_volume_bwd.cu, its adjoint), the quad configuration's
 // cost epilogues (cost_epilogue.cu, cost_epilogue_bwd.cu), the probes, the
-// deformable conv (deform_conv.cu) and the FMT's layer (fmt_layer.cu):
-// dtype conversion, 16-byte row loads and stores, the bf16 mma.sync, the
-// 4-tap reduce of a packed-quad row, the plane-sweep projection, the
-// bilinear taps and the (dtype, C, G) dispatch.
+// deformable conv (deform_conv.cu, deform_conv_bwd.cu) and the FMT's layer
+// (fmt_layer.cu): dtype conversion, 16-byte row loads and stores, the bf16
+// mma.sync, the 4-tap reduce of a packed-quad row, the plane-sweep
+// projection, the bilinear taps (of a plane-sweep footprint, and of a
+// deformable sample) and the (dtype, C, G) dispatch.
 //
 // Every product and sum that the plain PyTorch version (ops/geometry.py::
 // project_to_src, ops/grid_sample.py) rounds separately is written with an
@@ -197,6 +198,50 @@ __device__ __forceinline__ void sample(const T* __restrict__ src, int C,
   for_each_tap(f, H, W, [&](int64_t q, float w) {
     add_tap<T, N>(src + q * C + c0, w, o);
   });
+}
+
+// The 4 bilinear taps of (sy, sx) in an H x W image: each tap's pixel
+// index, weight and whether it lies inside the image, in the order y0x0,
+// y0x1, y1x0, y1x1, and the fractions fy, fx; a tap outside the image
+// reads pixel 0 with weight 0. The tests are on the float
+// coordinates, so far-outside or NaN coordinates never index memory.
+struct Corners {
+  int q[4];
+  float w[4];
+  bool in[4];    // the tap lies inside the image
+  float fy, fx;  // the point's fractions past its top-left tap
+};
+
+__device__ __forceinline__ Corners corners_at(float sy, float sx, int H,
+                                              int W) {
+  const float x0 = floorf(sx), y0 = floorf(sy);
+  const float wx1 = sx - x0, wy1 = sy - y0;
+  const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+  const bool cx0 = x0 >= 0.f && x0 <= static_cast<float>(W - 1);
+  const bool cx1 = x0 >= -1.f && x0 <= static_cast<float>(W - 2);
+  const bool cy0 = y0 >= 0.f && y0 <= static_cast<float>(H - 1);
+  const bool cy1 = y0 >= -1.f && y0 <= static_cast<float>(H - 2);
+  // in range wherever a tap is used; elsewhere saturated and wrapped
+  // (unsigned), never undefined
+  const int q0 = static_cast<int>(
+      static_cast<unsigned>(__float2int_rz(y0)) * static_cast<unsigned>(W) +
+      static_cast<unsigned>(__float2int_rz(x0)));
+  Corners c;
+  c.in[0] = cx0 && cy0;
+  c.in[1] = cx1 && cy0;
+  c.in[2] = cx0 && cy1;
+  c.in[3] = cx1 && cy1;
+  c.q[0] = c.in[0] ? q0 : 0;
+  c.q[1] = c.in[1] ? q0 + 1 : 0;
+  c.q[2] = c.in[2] ? q0 + W : 0;
+  c.q[3] = c.in[3] ? q0 + W + 1 : 0;
+  c.w[0] = c.in[0] ? wy0 * wx0 : 0.f;
+  c.w[1] = c.in[1] ? wy0 * wx1 : 0.f;
+  c.w[2] = c.in[2] ? wy1 * wx0 : 0.f;
+  c.w[3] = c.in[3] ? wy1 * wx1 : 0.f;
+  c.fy = wy1;
+  c.fx = wx1;
+  return c;
 }
 
 // Calls f(Type<T>{}, Int<C>{}, Int<G>{}) for the instantiated (dtype, C, G):

@@ -3,8 +3,12 @@
 Counterpart of ``casmvsnet_pl_tpu/engine/trainer.py`` and ``engine/
 state.py`` on one device:
   - train step = forward in train mode (BatchNorm on batch statistics) +
-    multi-scale masked SL1 + metrics, with the learning rate of the step's
-    schedule;
+    the model's own objective (``model.objective``: multi-scale masked SL1
+    for CasMVSNet, the focal loss for TransMVSNet; the forward returns each
+    level's probability volume and hypotheses beside the depths, which
+    softmax and the regression keep for the backward anyway, and the step
+    lets them go once the loss is taken) + metrics, with the learning rate
+    of the step's schedule;
   - validation sums pixel-weighted metrics over batches and divides once
     (sum-then-divide); ``val/loss`` is the mean over batches;
   - top-k checkpoints on val/acc_2mm (max, k=5) and ``last.ckpt``, each
@@ -41,7 +45,6 @@ import torch.nn as nn
 
 from ..data.base import unnormalize_image
 from ..data.loader import prefetch_to_device, to_device
-from ..losses import sl1_loss
 from ..metrics import batch_means, metric_sums
 from ..parallel import all_reduce_dict, all_reduce_sum, barrier, \
     check_same_on_ranks, rank, world_size
@@ -188,9 +191,13 @@ class MVSTrainer:
                 with self._autocast():
                     outs = (self.replica or model)(
                         *model_batch_args(batch),
-                        cost_volume=self.cost_volume)
-                loss = sl1_loss(outs, batch["depths"], batch["masks"],
-                                self.levels, self.distributed)
+                        cost_volume=self.cost_volume, volumes=True)
+                loss = model.objective(outs, batch["depths"], batch["masks"],
+                                       self.levels, self.distributed)
+                # only the finest depth outlives the loss, so that the
+                # backward frees each level's volumes as it passes them
+                depth_0 = outs["depth_0"].detach()
+                del outs
             with span("trainer.backward"):
                 # the gradients are cleared here and kept after the step
                 optimizer.zero_grad(set_to_none=True)
@@ -200,7 +207,7 @@ class MVSTrainer:
                 optimizer.step()
             state.step += 1
             with span("trainer.logs"):
-                means = batch_means(outs["depth_0"].detach(),
+                means = batch_means(depth_0,
                                     batch["depths"]["level_0"],
                                     batch["masks"]["level_0"],
                                     self.distributed)
@@ -213,16 +220,17 @@ class MVSTrainer:
 
     def eval_forward(self, state: TrainState, batch: dict) -> dict:
         """Eval-mode forward (running statistics; ranger's slow weights) of
-        this rank's rows, with no collective."""
+        this rank's rows, with no collective; its results hold what the
+        model's objective reads."""
         model = state.model
         model.eval()
         args = model_batch_args(batch)
+        kwargs = {"cost_volume": self.cost_volume, "volumes": True}
         with torch.no_grad(), self._autocast():
             if isinstance(state.optimizer, Lookahead):
                 return torch.func.functional_call(
-                    model, self.model_params(state), args,
-                    {"cost_volume": self.cost_volume})
-            return model(*args, cost_volume=self.cost_volume)
+                    model, self.model_params(state), args, kwargs)
+            return model(*args, **kwargs)
 
     def val_step(self, state: TrainState,
                  batch: dict) -> tuple[dict, dict]:
@@ -230,8 +238,8 @@ class MVSTrainer:
         with ``loss`` (this rank's share of the global batch's loss times
         N, several ranks), and the outputs."""
         outs = self.eval_forward(state, batch)
-        loss = sl1_loss(outs, batch["depths"], batch["masks"], self.levels,
-                        self.distributed)
+        loss = state.model.objective(outs, batch["depths"], batch["masks"],
+                                     self.levels, self.distributed)
         sums = metric_sums(outs["depth_0"], batch["depths"]["level_0"],
                            batch["masks"]["level_0"])
         sums["loss"] = loss

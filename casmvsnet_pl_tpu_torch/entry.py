@@ -26,7 +26,7 @@ import torch.nn as nn
 from .data.loader import collate
 from .data.synthetic import PlaneScene
 from .engine.trainer import MVSTrainer
-from .models import CascadeMVSNet, build_model
+from .models import build_model
 from .models.transmvsnet import DeformConv2d
 from .parallel import rank, shard_batch, world_size
 from .utils.optimizers import OptimConfig
@@ -119,9 +119,11 @@ def train_entry(device="cuda", dtype: torch.dtype | None = None,
                 seed: int = 0, n_depths=(8, 32, 48), lr: float = 1e-3,
                 steps_per_epoch: int = 100, optim_kwargs: dict | None = None,
                 cost_volume=None, sampling: str = "auto",
-                num_groups: int = 1, **trainer_kwargs):
+                num_groups: int = 1, arch: str = "casmvsnet",
+                **trainer_kwargs):
     """(trainer, state, batch): ``trainer.train_step(state, batch)`` runs one
-    training step of ``CascadeMVSNet`` on ``batch`` plane scenes
+    training step of ``CascadeMVSNet`` (``arch``: the model of
+    ``models.build_model``, with its own objective) on ``batch`` plane scenes
     (:func:`plane_sample` 0..batch-1, already on the device; in a process
     group, this rank's rows of them).
 
@@ -135,8 +137,8 @@ def train_entry(device="cuda", dtype: torch.dtype | None = None,
     device = torch.device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = CascadeMVSNet(n_depths=n_depths, num_groups=num_groups,
-                          sampling=sampling)
+    model = build_model(arch, n_depths, num_groups=num_groups,
+                        sampling=sampling)
     init_weights(model, torch.Generator().manual_seed(seed))
     cfg = OptimConfig(optimizer=optimizer, lr=lr, **(optim_kwargs or {}))
     trainer = MVSTrainer(model, cfg, steps_per_epoch, device=device,

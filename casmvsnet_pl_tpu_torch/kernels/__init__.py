@@ -3,7 +3,7 @@ from .cost_epilogue import (groupwise_epilogue_bwd_cuda,  # noqa: F401
                             groupwise_epilogue_cuda, variance_epilogue_bwd_cuda,
                             variance_epilogue_cuda)
 from .cost_volume import cost_volume_bwd_cuda, cost_volume_cuda  # noqa: F401
-from .deform_conv import deform_conv_cuda  # noqa: F401
+from .deform_conv import deform_conv_bwd_cuda, deform_conv_cuda  # noqa: F401
 from .fmt_layer import fmt_layer_cuda  # noqa: F401
 from .in_conv import in_conv_cuda  # noqa: F401
 from .library import LIBRARY

@@ -112,26 +112,21 @@ class CostVolumeBwdKernel(Kernel):
         """Inputs as :meth:`CostVolumeKernel.__call__`, plus grad_out, the
         gradient of its output: (B, D, H, W, C|G) in the feats dtype.
         Returns d feats (B, V, H, W, C) in the feats dtype, accumulated in
-        float32 and cast once. The groupwise correlation with one group
-        (TransMVSNet's volume) has no adjoint here yet: TransMVSNet's
-        training is a later change."""
-        if volume_kind(kind, groups) == "groupwise" and groups == 1:
-            raise NotImplementedError(
-                f"{self.name}: no backward of the one-group correlation "
-                "(TransMVSNet training, with its focal loss and the "
-                "deformable conv's backward, is not ported yet)")
+        float32 and cast once; for every kind of K1, the groupwise
+        correlation with one group (TransMVSNet's volume) included."""
+        kind = volume_kind(kind, groups)
         dev = _check_inputs(self.name, feats, proj_mats, depth_values, groups,
                             grad_out)
         B, V, H, W, C = feats.shape
         D = depth_values.shape[1]
-        want = (B, D, H, W, C if groups == 1 else groups)
+        want = (B, D, H, W, C if kind == "variance" else groups)
         if grad_out.shape != want or grad_out.dtype != feats.dtype:
             raise ValueError(f"grad_out must be {feats.dtype} {want}, got "
                              f"{grad_out.dtype} {tuple(grad_out.shape)}")
         grad = feats.new_zeros(feats.shape, dtype=torch.float32)
         self._launch(dev, feats.data_ptr(), proj_mats.data_ptr(),
                      depth_values.data_ptr(), grad_out.data_ptr(),
-                     grad.data_ptr(), B, V, H, W, D, C, groups,
+                     grad.data_ptr(), B, V, H, W, D, C, groups, KINDS[kind],
                      DTYPE_CODES[feats.dtype])
         return grad.to(feats.dtype)
 

@@ -64,7 +64,7 @@ class FmtLayerKernel(Kernel):
                              "view")
         check_layout(self.name, (views, *weights))
         dev = check_device(self.name, (views, *weights),
-                           "; the FMT's layer has no backward yet")
+                           "; training runs ops.fmt_layer.plain_fmt_layer")
         if not views.numel():
             return views
         sources = B if cross else B * V

@@ -26,6 +26,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn as nn
 
+from ..losses import sl1_loss
 from ..ops.geometry import (depth_regression, get_depth_values,
                             initial_depth_values, resize_bilinear)
 from ..ops.plane_sweep import build_cost_volume
@@ -94,15 +95,17 @@ class CascadeMVSNet(nn.Module):
 
     def from_features(self, feats: dict[str, Tensor], proj_mats: Tensor,
                       init_depth_min, depth_interval,
-                      cost_volume: Callable | None = None
-                      ) -> dict[str, Tensor]:
+                      cost_volume: Callable | None = None,
+                      volumes: bool = False) -> dict[str, Tensor]:
         """The cascade after feature extraction.
 
         proj_mats: (B, V-1, levels, 3, 4) f32; init_depth_min and
         depth_interval: scalars or (B,). ``cost_volume(feats, proj_mats,
         depth_values, groups)`` builds each level's volume; None means
         :func:`build_cost_volume` with the model's ``sampling``. A caller
-        passes another only to compare it with a plain version.
+        passes another only to compare it with a plain version. With
+        ``volumes`` the results also hold each level's probability volume
+        ``prob_l`` (B, D, h, w) f32 and its hypotheses ``depth_values_l``.
         """
         if cost_volume is None:
             cost_volume = self.default_cost_volume()
@@ -139,6 +142,9 @@ class CascadeMVSNet(nn.Module):
                                                                 depth_values)
                     results[f"depth_{l}"] = depth_l
                     results[f"confidence_{l}"] = conf_l
+                    if volumes:
+                        results[f"prob_{l}"] = prob
+                        results[f"depth_values_{l}"] = depth_values
                 depth_prev = depth_l
         return results
 
@@ -156,14 +162,23 @@ class CascadeMVSNet(nn.Module):
         return (depth_regression(prob, depth_values),
                 _sum4_confidence(prob, depth_values.shape[1]))
 
+    def objective(self, results: dict[str, Tensor], depths: dict[str, Tensor],
+                  masks: dict[str, Tensor], levels: int = 3,
+                  distributed: bool = False) -> Tensor:
+        """The training loss of the forward's ``results``: multi-scale masked
+        SmoothL1 on the depths (``losses.py::sl1_loss``)."""
+        return sl1_loss(results, depths, masks, levels, distributed)
+
     def forward(self, imgs: Tensor, proj_mats: Tensor, init_depth_min,
-                depth_interval, cost_volume: Callable | None = None
-                ) -> dict[str, Tensor]:
+                depth_interval, cost_volume: Callable | None = None,
+                volumes: bool = False) -> dict[str, Tensor]:
         """imgs: (B, V, H, W, 3) normalized images; proj_mats:
         (B, V-1, levels, 3, 4), level index fine -> coarse.
-        Returns {'depth_l': (B, h_l, w_l), 'confidence_l': ...}, l = 0, 1, 2.
+        Returns {'depth_l': (B, h_l, w_l), 'confidence_l': ...}, l = 0, 1, 2,
+        and with ``volumes`` each level's 'prob_l' and 'depth_values_l'
+        (:meth:`from_features`).
         """
         with span("cascade.features"):
             feats = self.features(imgs)
         return self.from_features(feats, proj_mats, init_depth_min,
-                                  depth_interval, cost_volume)
+                                  depth_interval, cost_volume, volumes)

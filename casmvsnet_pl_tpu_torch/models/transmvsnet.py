@@ -1,5 +1,5 @@
 """TransMVSNet (Ding et al., arXiv:2111.14600; megvii-research/TransMVSNet)
-on the port's cascade, for inference.
+on the port's cascade, for inference and training.
 
 - The trunk: the port's ``FeatureNet`` (32/16/8 channels at 1/4, 1/2, 1).
 - ARF (Sec. 3.4), on each of its three outputs: three modulated deformable
@@ -20,8 +20,13 @@ on the port's cascade, for inference.
   largest probability), on which the next level's window is centred, and
   the confidence that probability.
 
-Inference only: the deformable conv's kernel has no backward and K2 no
-one-group correlation, so a training step on the card raises.
+Training (``engine/trainer.py``) takes the model's :meth:`TransMVSNet.
+objective`, the focal loss (``losses.py::focal_loss``) over each level's
+probability volume and hypotheses, which the forward returns with
+``volumes``; the windows stay centred on the detached winner-take-all
+depths. On the card the deformable convs' backward is their kernel's
+(``ops/deform_conv.py``), the FMT runs its plain layers under autograd
+(``ops/fmt_layer.py``) and K2 takes the one-group correlation.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..losses import focal_loss
 from ..ops.deform_conv import deform_conv
 from ..ops.plane_sweep import build_cost_volume
 from ..utils.profiling import span
@@ -49,27 +55,29 @@ class DeformConv2d(nn.Module):
     """A modulated deformable 3x3 conv, C -> C, without bias, with its
     offset-and-mask branch."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, level: int | None = None):
         super().__init__()
+        self.level = level      # the cascade level, for the backward's span
         self.weight = nn.Parameter(torch.empty(channels, channels, 3, 3))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
         self.conv_offset_mask = nn.Conv2d(channels, 27, 3, padding=1)
 
     def forward(self, x: Tensor) -> Tensor:
         """x (N, C, H, W) (channels_last on the card) -> (N, C, H, W)."""
-        return deform_conv(x, self.conv_offset_mask(x), self.weight)
+        return deform_conv(x, self.conv_offset_mask(x), self.weight,
+                           self.level)
 
 
 class ARF(nn.Module):
     """dcn0, bn0, ReLU; dcn1, bn1, ReLU; dcn2."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, level: int | None = None):
         super().__init__()
-        self.dcn0 = DeformConv2d(channels)
+        self.dcn0 = DeformConv2d(channels, level)
         self.bn0 = BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.dcn1 = DeformConv2d(channels)
+        self.dcn1 = DeformConv2d(channels, level)
         self.bn1 = BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.dcn2 = DeformConv2d(channels)
+        self.dcn2 = DeformConv2d(channels, level)
 
     def forward(self, x: Tensor) -> Tensor:
         x = F.relu(self.bn0(self.dcn0(x)))
@@ -87,7 +95,8 @@ class TransMVSNet(CascadeMVSNet):
         for l in range(self.levels):
             self.add_module(f"cost_reg_{l}", CostRegNet(1))
         c0, c1, c2 = FEATURE_CHANNELS
-        self.arf = nn.ModuleList(ARF(c) for c in FEATURE_CHANNELS)
+        self.arf = nn.ModuleList(ARF(c, l)
+                                 for l, c in enumerate(FEATURE_CHANNELS))
         self.fmt = FMT(d_model, nhead, blocks)
         self.dim_reduction_1 = nn.Conv2d(c2, c1, 1, bias=False)
         self.dim_reduction_2 = nn.Conv2d(c1, c0, 1, bias=False)
@@ -128,3 +137,12 @@ class TransMVSNet(CascadeMVSNet):
         conf, idx = prob.max(dim=1)
         depth = torch.gather(depth_values, 1, idx[:, None])[:, 0]
         return depth, conf
+
+    def objective(self, results: dict[str, Tensor], depths: dict[str, Tensor],
+                  masks: dict[str, Tensor], levels: int = 3,
+                  distributed: bool = False) -> Tensor:
+        """The training loss: the focal loss of each level's probability
+        volume at the hypothesis nearest the ground truth
+        (``losses.py::focal_loss``; ``results`` from a forward with
+        ``volumes``)."""
+        return focal_loss(results, depths, masks, levels, distributed)

@@ -11,15 +11,17 @@ mask m_k = sigmoid(om[18 + k]); the output is
 x~ the bilinear sample of x with each of its 4 taps zero outside the image.
 
 On CUDA tensors the forward is the kernel ``kernels/deform_conv.py::
-deform_conv_cuda``; it has no backward yet (TransMVSNet's training is not
-ported), so a backward through it raises. On CPU tensors it is
+deform_conv_cuda`` and the backward the kernel ``deform_conv_bwd_cuda``
+(the gradients of x, of the offsets and masks, and of the weight, in one
+launch), joined by :class:`_DeformConv`. On CPU tensors it is
 :func:`plain_deform_conv`, differentiated by autograd.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.deform_conv import deform_conv_cuda
+from ..kernels.deform_conv import deform_conv_bwd_cuda, deform_conv_cuda
+from ..utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -28,22 +30,23 @@ TAPS = 9
 
 def plain_deform_conv(x: Tensor, offset_mask: Tensor, weight: Tensor
                       ) -> Tensor:
-    """``deform_conv``'s plain version on either device, in float32: x (N, C,
-    H, W), offset_mask (N, 27, H, W), weight (C_out, C, 3, 3) -> (N, C_out,
-    H, W) in x's dtype, channels_last. Each sample is the 4 taps' weighted
-    sum (taps outside the image read 0), times the mask, then contracted
-    with the weight."""
+    """``deform_conv``'s plain version on either device, in float32 (float64
+    for float64 x): x (N, C, H, W), offset_mask (N, 27, H, W), weight
+    (C_out, C, 3, 3) -> (N, C_out, H, W) in x's dtype, channels_last. Each
+    sample is the 4 taps' weighted sum (taps outside the image read 0),
+    times the mask, then contracted with the weight."""
     N, C, H, W = x.shape
-    om = offset_mask.float()
+    ct = torch.promote_types(x.dtype, torch.float32)
+    om = offset_mask.to(ct)
     dy, dx = om[:, 0:18:2], om[:, 1:18:2]                  # (N, 9, H, W)
     mask = torch.sigmoid(om[:, 18:27])
     k = torch.arange(TAPS, device=x.device)
-    ki, kj = (k // 3 - 1).float(), (k % 3 - 1).float()
-    rows = torch.arange(H, dtype=torch.float32, device=x.device)
-    cols = torch.arange(W, dtype=torch.float32, device=x.device)
+    ki, kj = (k // 3 - 1).to(ct), (k % 3 - 1).to(ct)
+    rows = torch.arange(H, dtype=ct, device=x.device)
+    cols = torch.arange(W, dtype=ct, device=x.device)
     sy = rows[None, None, :, None] + ki[None, :, None, None] + dy
     sx = cols[None, None, None, :] + kj[None, :, None, None] + dx
-    flat = x.float().permute(0, 2, 3, 1).reshape(N, H * W, C)
+    flat = x.to(ct).permute(0, 2, 3, 1).reshape(N, H * W, C)
     y0, x0 = torch.floor(sy), torch.floor(sx)
     fy, fx = sy - y0, sx - x0
     sample = 0.0
@@ -59,31 +62,44 @@ def plain_deform_conv(x: Tensor, offset_mask: Tensor, weight: Tensor
     sample = sample * mask.reshape(N, -1, 1)
     sample = sample.reshape(N, TAPS, H, W, C)
     y = torch.einsum("nkhwc,ock->nhwo", sample,
-                     weight.float().reshape(weight.shape[0], C, TAPS))
+                     weight.to(ct).reshape(weight.shape[0], C, TAPS))
     return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
 class _DeformConv(torch.autograd.Function):
-    """The kernel forward; no backward (CUDA tensors only)."""
+    """The kernel forward and the kernel backward (CUDA tensors only). The
+    inputs are kept for the backward only when a gradient is needed."""
 
     @staticmethod
-    def forward(ctx, x, offset_mask, weight):
+    def forward(ctx, x, offset_mask, weight, level):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, offset_mask, weight)
+            ctx.level = level
         return deform_conv_cuda(x, offset_mask, weight)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the deformable conv's kernel has no backward: TransMVSNet's "
-            "training (its focal loss and this backward) is not ported yet")
+        x, offset_mask, weight = ctx.saved_tensors
+        with span("arf.backward", level=ctx.level):
+            d_x, d_om, d_w = deform_conv_bwd_cuda(
+                x, offset_mask, weight,
+                grad_out.contiguous(memory_format=torch.channels_last))
+        return d_x, d_om, d_w, None
 
 
-def deform_conv(x: Tensor, offset_mask: Tensor, weight: Tensor) -> Tensor:
+def deform_conv(x: Tensor, offset_mask: Tensor, weight: Tensor,
+                level: int | None = None) -> Tensor:
     """x (N, C, H, W), offset_mask (N, 27, H, W), weight (C, C, 3, 3) ->
-    (N, C, H, W) in x's dtype, channels_last. On the card x and
-    offset_mask are made channels_last if they are not, and a backward
-    raises."""
+    (N, C, H, W), channels_last. On the card the three are taken in one
+    dtype, autocast's where it is on (else x's), x and offset_mask made
+    channels_last if they are not; the backward is the kernel's, recorded
+    as an ``arf.backward`` span (attribute ``level``)."""
     if x.is_cuda:
+        dtype = torch.get_autocast_dtype("cuda") \
+            if torch.is_autocast_enabled("cuda") else x.dtype
         return _DeformConv.apply(
-            x.contiguous(memory_format=torch.channels_last),
-            offset_mask.contiguous(memory_format=torch.channels_last), weight)
+            x.to(dtype).contiguous(memory_format=torch.channels_last),
+            offset_mask.to(dtype).contiguous(
+                memory_format=torch.channels_last),
+            weight.to(dtype), level)
     return plain_deform_conv(x, offset_mask, weight)

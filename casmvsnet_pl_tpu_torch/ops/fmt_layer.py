@@ -7,10 +7,10 @@ A layer's weights are ten tensors, in this order: ``q_proj``, ``k_proj``,
 ``v_proj``, ``merge`` (C x C), ``mlp.0`` (2C x 2C), ``mlp.2`` (C x 2C),
 ``norm1``'s weight and bias, ``norm2``'s weight and bias (C).
 
-On CUDA tensors :func:`fmt_layer` is the kernel ``kernels/fmt_layer.py::
-fmt_layer_cuda``, which updates the views in place; it has no backward yet
-(TransMVSNet's training is not ported), so a backward through it raises.
-On CPU tensors it is :func:`plain_fmt_layer`, differentiated by autograd.
+On CUDA tensors that need no gradient (eval) :func:`fmt_layer` is the
+kernel ``kernels/fmt_layer.py::fmt_layer_cuda``, which updates the views in
+place and has no backward. Where a gradient is needed (training), and on
+CPU tensors, it is :func:`plain_fmt_layer`, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -61,21 +61,6 @@ def plain_fmt_layer(x: Tensor, source: Tensor, weights, nhead: int
     return x + F.layer_norm(message, (C,), n2w, n2b, LN_EPS)
 
 
-class _FmtLayer(torch.autograd.Function):
-    """The kernel forward, in place; no backward (CUDA tensors only)."""
-
-    @staticmethod
-    def forward(ctx, views, cross, nhead, *weights):
-        ctx.mark_dirty(views)
-        return fmt_layer_cuda(views, weights, nhead, cross)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the FMT layer's kernel has no backward: TransMVSNet's training "
-            "is not ported yet")
-
-
 def plain_fmt_views(views: Tensor, weights, nhead: int, cross: bool
                     ) -> Tensor:
     """:func:`fmt_layer`'s plain version on either device, in views' dtype:
@@ -94,9 +79,12 @@ def fmt_layer(views: Tensor, weights, nhead: int, cross: bool) -> Tensor:
     """views (B, V, L, C), the reference view of each scene first -> the
     same: a self layer (``cross`` False) updates every view from itself, a
     cross layer every view but the reference from its scene's reference.
-    On the card the views are updated in place (they must be contiguous)
-    and returned, and a backward raises; on the CPU a new tensor is
-    returned (:func:`plain_fmt_views`)."""
-    if views.is_cuda:
-        return _FmtLayer.apply(views, cross, nhead, *weights)
+    On the card, where no gradient is needed, the kernel updates the views
+    in place (they must be contiguous) and returns them; where one is
+    needed, and on the CPU, a new tensor is returned
+    (:func:`plain_fmt_views`)."""
+    grad = torch.is_grad_enabled() and (
+        views.requires_grad or any(w.requires_grad for w in weights))
+    if views.is_cuda and not grad:
+        return fmt_layer_cuda(views, weights, nhead, cross)
     return plain_fmt_views(views, weights, nhead, cross)

@@ -53,10 +53,12 @@ def get_opts(argv=None):
                         help='groups in groupwise correlation (divisor of 8)')
     parser.add_argument('--arch', type=str, default='casmvsnet',
                         choices=list(ARCHS),
-                        help='the model: CasMVSNet, or TransMVSNet (eval '
-                             'only: train_torch.py refuses it)')
+                        help='the model: CasMVSNet, or TransMVSNet')
     parser.add_argument('--loss_type', type=str, default='sl1',
-                        choices=['sl1'], help='loss to use')
+                        choices=['sl1'],
+                        help="loss to use (CasMVSNet's; each model trains "
+                             "with its own objective: --arch transmvsnet "
+                             'with its focal loss)')
 
     parser.add_argument('--batch_size', type=int, default=1)
     parser.add_argument('--num_epochs', type=int, default=16)

@@ -337,6 +337,22 @@ counterpart):
      (``perfbench/counts/in_conv.py``). TransMVSNet's forward (phase 55's
      path) launches it once a level; no CasMVSNet path launches it.
 
+TransMVSNet's training, the deformable conv's backward (``csrc/
+deform_conv_bwd.cu``, no TPU counterpart):
+ 58. (run after phase 57) the backward kernel against the plain version's
+     autograd (``torch.autograd.grad`` through ``plain_deform_conv``) at
+     the training cell's three level shapes (B=2 x 5 views at 640x512, 8,
+     16 and 32 channels, offsets of about a pixel): the gradients of x,
+     of the offsets and masks and of the weight, f32 within 1e-4 of each
+     gradient's largest magnitude, bf16 within two bf16 ulps of the f32
+     plain gradients of the same bf16 values and that bound; then timed
+     against the plain version's forward and backward in turns, beside
+     its bound (``perfbench/counts/deform_conv_bwd.py``); then TransMVSNet's
+     bf16 Adam steps at 640x512x3 B=2 through ``train_entry(arch=
+     "transmvsnet")`` (the focal loss), launching exactly K1, K2 and the
+     prob conv 3 times a step and the deformable conv's forward and
+     backward 9 times each, the loss falling.
+
 Every cascade forward on the card launches the prob conv's kernel once a
 level, and every path's launches count it beside K1 (or #3/#5). A plain
 forward held against a kernel forward (phases 5, 31, 39, 41) takes
@@ -415,6 +431,12 @@ G8_STEP = {"groupwise_epilogue_cuda": 3, "groupwise_epilogue_bwd_cuda": 3,
 # deformable convs a level, the FMT's eight layers at two launches each
 TRANS_FWD = {"cost_volume_cuda": 3, "deform_conv_cuda": 9,
              "fmt_layer_cuda": 16, "in_conv_cuda": 3, **PROB}
+# TransMVSNet's training step: K1, K2 and the prob conv once a level, the
+# deformable conv's forward and backward once a conv; the FMT runs its
+# plain layers under autograd and the input block its plain convs
+TRANS_STEP = {"cost_volume_cuda": 3, "cost_volume_bwd_cuda": 3,
+              "deform_conv_cuda": 9, "deform_conv_bwd_cuda": 9, **PROB}
+TRANS_TRAIN_STEPS = 8
 # forward and backward of both source views at each of the three levels
 WARP_PATH = {"tap_reduce_cuda": 6, "tap_reduce_bwd_cuda": 6}
 
@@ -1158,6 +1180,118 @@ def deform_conv_phase(card) -> tuple[float, dict]:
           f"{k_ms!r} ms, plain {p_ms!r} ms; bound {least_ms!r} ms ({by}) -> "
           f"{100 * least_ms / k_ms!r} % [{card}]")
     return worst, (k_ms, p_ms, least_ms, by)
+
+
+# --- the deformable conv's backward: TransMVSNet's training (phase 58) -----
+
+# float32: the kernel and the plain autograd sum in different orders (the
+# weight's gradient over millions of pixels, the input's by atomics): each
+# gradient within 1e-4 of its largest magnitude; bf16: one rounding of the
+# float32 sums, within two bf16 ulps of the plain float32 gradients of the
+# same bf16 values and that bound
+DCN_BWD_TOL = 1e-4
+TRAIN_VIEWS = 5
+
+
+def deform_conv_bwd_cases(img_wh=None):
+    """(level, N, C, h, w) of TransMVSNet's ARF in the training cell: B=2
+    scenes of 5 views at 640x512."""
+    W, H = img_wh or IMG_WH
+    return [(l, 2 * TRAIN_VIEWS, C, H >> l, W >> l)
+            for l, C in enumerate((8, 16, 32))]
+
+
+def plain_deform_grads(x, om, wt, gy):
+    """The plain version's gradients of (x, offsets and masks, weight) for
+    the output gradient gy, in float32."""
+    from casmvsnet_pl_tpu_torch.ops.deform_conv import plain_deform_conv
+    leaves = [t.detach().float().requires_grad_() for t in (x, om, wt)]
+    with torch.enable_grad():
+        y = plain_deform_conv(*leaves)
+        return torch.autograd.grad(y, leaves, gy.float())
+
+
+def deform_conv_bwd_phase(card) -> tuple[float, tuple]:
+    """Phase 58: the deformable conv's backward kernel against the plain
+    version's autograd at the training cell's three level shapes (f32, then
+    bf16 against the f32 plain gradients of the same bf16 values), then
+    timed in bf16 against the plain forward and backward in turns, beside
+    its bound (``perfbench/counts/deform_conv_bwd.py``). Returns the largest
+    f32 error over the largest gradient, and the sums over the three
+    levels: (kernel ms, plain ms, the levels' bounds in ms, what sets
+    each)."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
+    from perfbench.counts.deform_conv_bwd import dcn_bwd_bound_s, dcn_bwd_work
+
+    g = torch.Generator(device=DEVICE).manual_seed(58)
+    worst, sums, least_ms, bound_by = 0.0, {}, 0.0, []
+    names = ("x", "offset_mask", "weight")
+    for l, N, C, h, w in deform_conv_bwd_cases():
+        x, om, wt = deform_conv_inputs(N, C, h, w, g)
+        gy = torch.randn((N, h, w, C), generator=g,
+                         device=DEVICE).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            got = deform_conv_bwd_cuda(x, om, wt, gy)
+        want = plain_deform_grads(x, om, wt, gy)
+        report = []
+        for name, a, b in zip(names, got, want):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item() / max(scale, 1e-30)
+            worst = max(worst, err)
+            report.append(f"{name} {err!r}")
+            if not err <= DCN_BWD_TOL:
+                raise AssertionError(f"deform conv backward L{l} f32 {name}:"
+                                     f" {err!r} of its largest gradient")
+        del got, want
+        xb, ob, wb, gb = (t.to(torch.bfloat16) for t in (x, om, wt, gy))
+        del x, om, wt, gy
+        with torch.no_grad():
+            got = deform_conv_bwd_cuda(xb, ob, wb, gb)
+        want = plain_deform_grads(xb, ob, wb, gb)
+        ulps = []
+        for name, a, b in zip(names, got, want):
+            if a.dtype != torch.bfloat16:
+                raise AssertionError(f"{name}'s gradient is {a.dtype}")
+            e = (a.float() - b).abs()
+            ulps.append(f"{name} {(e / bf16_ulp(b)).max().item()!r}")
+            if not bool((e <= 2 * bf16_ulp(b) + DCN_BWD_TOL
+                         * b.abs().max()).all()):
+                raise AssertionError(f"deform conv backward L{l} bf16 {name}"
+                                     " beyond two ulps and the f32 bound")
+        print(f"deform-conv-bwd-check L{l} (N, C, h, w) {(N, C, h, w)}: f32 "
+              f"max error over the largest gradient: {', '.join(report)}; "
+              f"bf16 max ulps of the f32 plain gradients: {', '.join(ulps)}")
+        del got, want
+        nbytes, ops, tensor_ops = dcn_bwd_work(N, h, w, C, 2)
+        b_s, by = dcn_bwd_bound_s(N, h, w, C, 2)
+        least_ms += 1e3 * b_s
+        bound_by.append(f"L{l} {by}")
+        time_level(sums, "deform_conv_bwd", f"L{l} bf16 {(N, C, h, w)}",
+                   lambda: deform_conv_bwd_cuda(xb, ob, wb, gb),
+                   lambda: plain_deform_grads(xb, ob, wb, gb), (10, 2),
+                   (nbytes, ops + tensor_ops), card,
+                   "plain: the plain forward and its autograd backward; "
+                   f"tensor cores {tensor_ops / 1e9!r} GFLOP; ",
+                   (1e3 * b_s, by))
+        del xb, ob, wb, gb
+        torch.cuda.empty_cache()
+    k_ms, p_ms = sums["deform_conv_bwd"][:2]
+    by = ", ".join(bound_by)
+    print(f"deform_conv_bwd, sum over the 3 level shapes (one conv each): "
+          f"kernel {k_ms!r} ms, plain {p_ms!r} ms; bound {least_ms!r} ms "
+          f"({by}) -> {100 * least_ms / k_ms!r} % [{card}]")
+    return worst, (k_ms, p_ms, least_ms, by)
+
+
+def transmvsnet_train_path(train_entry, card) -> dict:
+    """TransMVSNet's bf16 Adam steps at 640x512x3 B=2 through
+    ``train_entry(arch="transmvsnet")``; launches exactly ``TRANS_STEP`` a
+    step, the loss falling."""
+    trainer, state, batch, counts = train_main_path(
+        train_entry, card, TRANS_TRAIN_STEPS, TRANS_STEP, arch="transmvsnet")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return counts
 
 
 # --- the FMT's LoFTR layer: TransMVSNet's Feature Matching Transformer (56) --
@@ -3533,7 +3667,9 @@ def main() -> int:
     errs["deform_conv_cuda"], dcn_times = deform_conv_phase(card)
     errs["fmt_layer_cuda"], fmt_times = fmt_layer_phase(card)
     errs["in_conv_cuda"], in_conv_times = in_conv_phase(card)
+    errs["deform_conv_bwd_cuda"], dcn_bwd_times = deform_conv_bwd_phase(card)
     paths["transmvsnet"] = transmvsnet_path(entry)
+    paths["transmvsnet_train"] = transmvsnet_train_path(train_entry, card)
     profile_paths(entry, train_entry, card)
 
     errs.update(check_tap_reduce(inputs2))
@@ -3633,6 +3769,14 @@ def main() -> int:
         "transmvsnet", errs["deform_conv_cuda"], dcn_times,
         "bf16 x, offsets and weight, 5 views at 1152x864, one conv a level, "
         "sum over the 3 level shapes"))
+    # the deformable conv's backward: no TPU kernel, no library call
+    lines.append(kernel_line(
+        "deform_conv_bwd", csrc + "deform_conv_bwd.cu", None,
+        by_path("deform_conv_bwd_cuda", default_paths + (
+            "transmvsnet", "transmvsnet_train")), "transmvsnet_train",
+        errs["deform_conv_bwd_cuda"], dcn_bwd_times,
+        "bf16 x, offsets, weight and output gradient, B=2 x 5 views at "
+        "640x512, one conv a level, sum over the 3 level shapes"))
     # the FMT's layer: no TPU kernel, no library call
     lines.append(kernel_line(
         "fmt_layer", csrc + "fmt_layer.cu", None,

@@ -257,8 +257,16 @@ def test_the_fmt_runs_no_layer_norm_of_pytorch(cuda):
 
 @pytest.mark.cuda
 def test_a_backward_through_the_kernel_raises(cuda):
+    """The kernel records no graph: it refuses a tensor that needs a
+    gradient, and ``fmt_layer`` takes the plain layer under autograd
+    there, with the plain layer's gradients."""
     layer, views = _layer_inputs(1, 2, 100, 3, cuda)
     x = views.requires_grad_() * 1.0
+    with pytest.raises(ValueError, match="autograd"):
+        fmt_layer_cuda(x, layer.weights(), HEADS, False)
     out = fmt_layer(x, layer.weights(), HEADS, False)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        out.sum().backward()
+    (got,) = torch.autograd.grad(out.square().sum(), views)
+    want_out = plain_fmt_views(views * 1.0, layer.weights(), HEADS, False)
+    (want,) = torch.autograd.grad(want_out.square().sum(), views)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)

@@ -6,13 +6,17 @@ kernel attention computed quadratically, the one-group correlation against
 the reference's, the kind of volume through ``build_cost_volume``, the
 spans, and the CLIs that build or refuse the model.
 
-The tests marked ``cuda`` hold the deformable conv's kernel
-(``csrc/deform_conv.cu``) and K1's one-group correlation against their
-plain versions; they skip (inside the ``cuda`` fixture, never at
-collection) where there is no CUDA device. On a machine with one:
+The tests marked ``cuda`` hold the deformable conv's kernels
+(``csrc/deform_conv.cu``, the forward, and ``csrc/deform_conv_bwd.cu``, the
+backward, against the plain version's autograd), K1's and K2's one-group
+correlation against their plain versions, and a training step's launches;
+they skip (inside the ``cuda`` fixture, never at collection) where there
+is no CUDA device. On a
+machine with one:
 
     python -m pytest tests/test_torch_port_transmvsnet.py --noconftest -m cuda
 """
+import math
 import os
 import sys
 
@@ -27,6 +31,8 @@ if REPO not in sys.path:
 import convert_ckpt_torch  # noqa: E402
 import eval_torch  # noqa: E402
 import train_torch  # noqa: E402
+from casmvsnet_pl_tpu_torch.data import (DTUDataset,  # noqa: E402
+                                         write_dtu_tree)
 from casmvsnet_pl_tpu_torch.entry import entry  # noqa: E402
 from casmvsnet_pl_tpu_torch.kernels.cost_volume import (  # noqa: E402
     cost_volume_bwd_cuda, volume_kind)
@@ -37,8 +43,9 @@ from casmvsnet_pl_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_conv, plain_deform_conv)
 from casmvsnet_pl_tpu_torch.ops.fmt_layer import linear_attention  # noqa: E402
 from casmvsnet_pl_tpu_torch.ops.plane_sweep import (  # noqa: E402
-    build_cost_volume, plain_cost_volume)
+    build_cost_volume, plain_cost_volume, plain_cost_volume_bwd)
 from casmvsnet_pl_tpu_torch.opt import get_opts  # noqa: E402
+from casmvsnet_pl_tpu_torch.utils import load_checkpoint  # noqa: E402
 from casmvsnet_pl_tpu_torch.utils.profiling import (RECORDER,  # noqa: E402
                                                     span_summary)
 from perfbench import program, scenes  # noqa: E402
@@ -222,8 +229,9 @@ def test_the_kind_of_volume():
     with pytest.raises(ValueError, match="quad"):
         build_cost_volume(feats, proj, depth, 1, sampling="quad",
                           kind="groupwise")
-    # K2 has no one-group correlation: refused before any launch
-    with pytest.raises(NotImplementedError, match="TransMVSNet"):
+    # K2 takes the one-group correlation (TransMVSNet's training): its only
+    # refusal here is the CPU tensors
+    with pytest.raises(ValueError, match="CUDA tensors"):
         cost_volume_bwd_cuda(feats, proj, depth, depth[..., None], 1,
                              "groupwise")
 
@@ -273,11 +281,42 @@ def test_eval_torch_builds_transmvsnet(threads):
     assert ((conf > 0) & (conf <= 1)).all()
 
 
-def test_train_torch_refuses_transmvsnet(tmp_path):
-    opts = get_opts(["--cpu", "--arch", "transmvsnet", "--root_dir",
-                     str(tmp_path)])
-    with pytest.raises(SystemExit, match="cannot be trained"):
-        train_torch.main(opts)
+class _TinyDTU(DTUDataset):
+    """The tree of :func:`test_train_torch_refuses_transmvsnet`."""
+    NATIVE_WH = (128, 128)
+    DEPTH_CROP = ((16, 48), (16, 48))
+    N_CAMS = 3
+    LISTS_DIR = None
+
+
+def test_train_torch_refuses_transmvsnet(tmp_path, monkeypatch, threads):
+    """``train_torch.py --arch transmvsnet``, refused until TransMVSNet's
+    training was ported, now trains: one epoch (21 samples, 3 steps) on a
+    synthetic tree, on the CPU, through ``MVSTrainer`` with the focal loss,
+    and its checkpoint holds TransMVSNet's parameters."""
+    root = str(tmp_path / "dtu")
+    write_dtu_tree(root, scans=("synth1", "synth2"), n_cams=3,
+                   img_wh=(32, 32), native_wh=(128, 128), focal=50.0,
+                   depth_crop=_TinyDTU.DEPTH_CROP)
+    lists = os.path.join(root, "lists")
+    os.makedirs(lists)
+    for split, scan in (("train", "synth1"), ("val", "synth2")):
+        with open(os.path.join(lists, f"{split}.txt"), "w") as f:
+            f.write(scan + "\n")
+    monkeypatch.setattr(_TinyDTU, "LISTS_DIR", lists)
+    monkeypatch.chdir(tmp_path)
+    opts = get_opts(["--cpu", "--arch", "transmvsnet", "--root_dir", root,
+                     "--n_depths", "8", "8", "8", "--batch_size", "7",
+                     "--optimizer", "adam", "--precision", "f32",
+                     "--num_workers", "1", "--num_epochs", "1",
+                     "--exp_name", "tm"])
+    trainer, state = train_torch.main(opts, _TinyDTU, time_steps=True)
+    assert isinstance(state.model, TransMVSNet) and state.step == 3
+    assert all(math.isfinite(t["loss"]) and t["loss"] > 0
+               for t in trainer.step_times)
+    assert math.isfinite(trainer.epoch_metrics[0]["val/loss"])
+    ckpt = load_checkpoint(os.path.join("ckpts", "tm", "last.ckpt"))
+    assert "arf.0.dcn0.weight" in ckpt["params"]
     assert get_opts([]).arch == "casmvsnet"
 
 
@@ -340,3 +379,137 @@ def test_k1_one_group_correlation_matches_its_plain_version(cuda):
         want = plain_cost_volume(feats, proj, depth, 1, "groupwise")
         assert got.shape == (1, 16, 24, 40, 1)
         assert torch.equal(got, want), C
+
+
+def _plain_grads(x, om, w, gy):
+    """The plain version's float32 gradients of (x, offsets and masks,
+    weight) for the output gradient gy."""
+    leaves = [t.detach().float().requires_grad_() for t in (x, om, w)]
+    return torch.autograd.grad(plain_deform_conv(*leaves), leaves,
+                               gy.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,shape", [(8, (3, 37, 29)), (16, (2, 20, 33)),
+                                     (32, (5, 24, 31))])
+def test_the_deformable_backward_kernel_matches_plain_autograd(cuda, C,
+                                                               shape):
+    """One launch gives the three gradients: f32 within 1e-4 of each
+    gradient's largest magnitude (the two sum in different orders, the
+    input's by atomics); bf16 within two bf16 ulps of the f32 plain
+    gradients of the same bf16 values, and that bound."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
+    N, H, W = shape
+    g = torch.Generator(device=cuda).manual_seed(10 + C)
+
+    def nhwc(c, scale=1.0):
+        return (torch.randn((N, H, W, c), generator=g, device=cuda)
+                * scale).permute(0, 3, 1, 2)
+    x, om, gy = nhwc(C), nhwc(27, 2.0), nhwc(C)
+    w = torch.randn((C, C, 3, 3), generator=g, device=cuda) * (2 / 9 / C) ** .5
+    before = deform_conv_bwd_cuda.launches
+    got = deform_conv_bwd_cuda(x, om, w, gy)
+    assert deform_conv_bwd_cuda.launches == before + 1
+    for a, b, like in zip(got, _plain_grads(x, om, w, gy), (x, om, w)):
+        assert a.shape == like.shape and a.dtype == torch.float32
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    assert got[1].is_contiguous(memory_format=torch.channels_last)
+    xb, ob, wb, gb = (t.bfloat16() for t in (x, om, w, gy))
+    got = deform_conv_bwd_cuda(xb, ob, wb, gb)
+    for a, b in zip(got, _plain_grads(xb, ob, wb, gb)):
+        assert a.dtype == torch.bfloat16
+        tol = 2 * _bf16_ulp(b) + 1e-4 * b.abs().max()
+        assert ((a.float() - b).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_the_deformable_conv_trains_through_its_kernels(cuda):
+    """Under bf16 autocast, float32 leaves: one forward and one backward
+    launch, the gradients within two bf16 ulps (and 1e-3 of the largest)
+    of the plain version's on the same bf16 values, and the arf.backward
+    span; without a gradient the forward keeps nothing and the backward
+    kernel never runs."""
+    from casmvsnet_pl_tpu_torch.kernels import (deform_conv_bwd_cuda,
+                                                deform_conv_cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 16, 21, 19), generator=g, device=cuda)
+    om = torch.randn((2, 27, 21, 19), generator=g, device=cuda)
+    w = torch.randn((16, 16, 3, 3), generator=g, device=cuda) * 0.1
+    gy = torch.randn((2, 16, 21, 19), generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, om, w)]
+    launches = deform_conv_cuda.launches, deform_conv_bwd_cuda.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = deform_conv(*leaves, level=1)
+        assert y.dtype == torch.bfloat16
+        got = torch.autograd.grad(y, leaves, gy.bfloat16())
+    assert (deform_conv_cuda.launches, deform_conv_bwd_cuda.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    (bwd,) = [s for s in RECORDER.spans if s.name == "arf.backward"]
+    assert bwd.attrs["level"] == 1
+    want = _plain_grads(x.bfloat16(), om.bfloat16(), w.bfloat16(),
+                        gy.bfloat16())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        tol = 2 * _bf16_ulp(b) + 1e-3 * b.abs().max()
+        assert ((a - b).abs() <= tol).all()
+    with torch.inference_mode():
+        out = deform_conv(x.bfloat16(), om.bfloat16(), w.bfloat16())
+    assert out.grad_fn is None
+    assert deform_conv_bwd_cuda.launches == launches[1] + 1
+
+
+@pytest.mark.cuda
+def test_k2_one_group_correlation_matches_its_plain_version(cuda):
+    """K2 at G = 1 by kind: f32 within 1e-5 abs + rel of its plain
+    version, bf16 within two ulps of the rounded plain result (+ 1e-5), as
+    K2's other forms are held."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for C in (8, 16, 32):
+        feats = torch.rand((2, 5, 24, 40, C), generator=g, device=cuda)
+        proj = scenes.proj_mats(5, 40.0, 1, cuda)[:, 0][None].repeat(
+            2, 1, 1, 1).contiguous()
+        depth = 400.0 + 20.0 * torch.rand((2, 16, 24, 40), generator=g,
+                                          device=cuda)
+        go = torch.randn((2, 16, 24, 40, 1), generator=g, device=cuda)
+        before = cost_volume_bwd_cuda.launches
+        got = cost_volume_bwd_cuda(feats, proj, depth, go, 1, "groupwise")
+        assert cost_volume_bwd_cuda.launches == before + 1
+        want = plain_cost_volume_bwd(feats, proj, depth, go, 1, "groupwise")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   msg=f"C={C}")
+        fb, gb = feats.bfloat16(), go.bfloat16()
+        got_b = cost_volume_bwd_cuda(fb, proj, depth, gb, 1, "groupwise")
+        want_b = plain_cost_volume_bwd(fb.float(), proj, depth, gb.float(), 1,
+                                       "groupwise").bfloat16().float()
+        err = (got_b.float() - want_b).abs()
+        assert bool((err <= 2 * _bf16_ulp(want_b) + 1e-5).all()), C
+
+
+@pytest.mark.cuda
+def test_a_training_step_launches_the_kernels(cuda):
+    """A bf16 training step of TransMVSNet through ``MVSTrainer`` (the
+    benchmark's trainer, the focal loss) launches K1, K2 and the prob conv
+    once a level and the deformable conv's forward and backward once a
+    conv, and nothing else of the library: no plain deformable conv, no
+    FMT layer kernel (training runs its plain layers), no input block."""
+    from casmvsnet_pl_tpu_torch import kernels
+    cfg = load_json("configs", "transmvsnet_train.json")
+    weights = program.draw_weights(cfg, 5, cuda)
+    tr, state = program.trainer(cfg, weights, cuda)
+    batch = scenes.make_batch(5, range(2), (128, 96), 5, 100.0, cfg, cuda)
+    tr.train_step(state, batch)
+    before = kernels.launch_counts()
+    state, logs = tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items()
+           if n != before[k]}
+    assert ran == {"cost_volume_cuda": 3, "cost_volume_bwd_cuda": 3,
+                   "deform_conv_cuda": 9, "deform_conv_bwd_cuda": 9,
+                   "prob_conv_cuda": 3}
+    assert math.isfinite(float(logs["train/loss"]))
+    assert all(torch.isfinite(p.grad).all()
+               for p in state.model.parameters())
+

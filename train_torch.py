@@ -9,10 +9,12 @@ events (scalars and [image|GT|pred|prob] panels) under
     python train_torch.py --root_dir <DTU training root> --batch_size 2 \\
         --optimizer adam --lr 1e-3 --num_epochs 16
 
-It trains ``CascadeMVSNet`` (``--arch casmvsnet``, the default; ``--arch
-transmvsnet`` is refused: TransMVSNet runs for inference only, through
-``eval_torch.py``) (``--n_depths``, ``--interval_ratios``,
-``--num_groups``, ``--sampling``) at ``--precision`` on the train split of
+It trains ``CascadeMVSNet`` (``--arch casmvsnet``, the default; its loss
+the multi-scale SmoothL1) or ``TransMVSNet`` (``--arch transmvsnet``; its
+focal loss over each level's probability volume, whatever
+``--loss_type``, which keeps the JAX package's one choice) (``--n_depths``,
+``--interval_ratios``, ``--num_groups``,
+``--sampling``) at ``--precision`` on the train split of
 ``--dataset_name``'s reader (DTU, or BlendedMVS at its 768x576, where
 ``--depth_interval`` is the number of depth hypotheses in all; a warm
 start from a DTU checkpoint is ``--ckpt_path``) and validates on its val
@@ -51,7 +53,7 @@ import torch
 from casmvsnet_pl_tpu_torch.data import DataLoader, dataset_dict
 from casmvsnet_pl_tpu_torch.engine import MVSTrainer
 from casmvsnet_pl_tpu_torch.entry import init_weights
-from casmvsnet_pl_tpu_torch.models import CascadeMVSNet
+from casmvsnet_pl_tpu_torch.models import build_model
 from casmvsnet_pl_tpu_torch.opt import get_opts
 from casmvsnet_pl_tpu_torch.parallel import (initialize_distributed,
                                              rank_device, spawn)
@@ -73,16 +75,6 @@ def dataset_class(name: str):
     return dataset_dict[name]
 
 
-def refuse_arch(hparams) -> None:
-    """Exit with a message for an ``--arch`` the trainer cannot train."""
-    if hparams.arch != "casmvsnet":
-        raise SystemExit(
-            f"train_torch.py: --arch {hparams.arch} cannot be trained yet: "
-            "TransMVSNet's focal loss and the backward of its deformable "
-            "conv are not ported; run it for inference with eval_torch.py "
-            "--arch transmvsnet")
-
-
 def main(hparams, dataset_cls=None, time_steps: bool = False):
     """Train as ``hparams`` say. ``dataset_cls`` replaces the dataset's
     reader (a subclass for another tree layout; it must pickle when
@@ -90,7 +82,6 @@ def main(hparams, dataset_cls=None, time_steps: bool = False):
     wall time, loader wait and loss in the trainer's ``step_times``.
     Returns (trainer, state) in a single process, None after spawning
     ranks."""
-    refuse_arch(hparams)
     device = resolve_device(hparams)
     dataset_cls = dataset_cls or dataset_class(hparams.dataset_name)
     if "WORLD_SIZE" in os.environ and int(os.environ["WORLD_SIZE"]) > 1:
@@ -125,10 +116,9 @@ def train(hparams, dataset_cls, device, time_steps: bool = False):
     lead = r == 0
     dtype = torch.bfloat16 if hparams.precision == "bf16" or \
         hparams.use_amp else torch.float32
-    model = CascadeMVSNet(n_depths=tuple(hparams.n_depths),
-                          interval_ratios=tuple(hparams.interval_ratios),
-                          num_groups=hparams.num_groups,
-                          sampling=hparams.sampling)
+    model = build_model(hparams.arch, tuple(hparams.n_depths),
+                        tuple(hparams.interval_ratios), hparams.num_groups,
+                        hparams.sampling)
     init_weights(model, torch.Generator().manual_seed(hparams.seed))
 
     kw = dict(n_views=hparams.n_views, levels=hparams.levels,
