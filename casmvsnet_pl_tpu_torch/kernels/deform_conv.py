@@ -5,14 +5,18 @@ its forward, ``csrc/deform_conv.cu``, and its backward,
 Two wrappers, each with its own launch count, over the shared library that
 ``kernels/library.py`` builds from ``csrc/``: ``deform_conv_cuda`` (the
 forward) and ``deform_conv_bwd_cuda`` (the gradients of the input, the
-offsets and masks, and the weight). They replace no TPU kernel (the JAX
-package has no TransMVSNet). Plain version: ``ops/deform_conv.py::
-plain_deform_conv`` and its autograd. The wrappers are raw launches that
-record no autograd graph; ``ops/deform_conv.py::deform_conv`` joins them
-into a ``torch.autograd.Function`` on CUDA tensors. There is no fallback:
-on a CUDA tensor a wrapper launches its kernel or raises.
+offsets and masks, and the weight; its ``spill_counts()`` reads how much
+of the input's gradient the binned scatter spilled to global atomics).
+They replace no TPU kernel (the JAX package has no TransMVSNet). Plain
+version: ``ops/deform_conv.py::plain_deform_conv`` and its autograd. The
+wrappers are raw launches that record no autograd graph; ``ops/
+deform_conv.py::deform_conv`` joins them into a ``torch.autograd.Function``
+on CUDA tensors. There is no fallback: on a CUDA tensor a wrapper launches
+its kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -46,9 +50,23 @@ class DeformConvKernel(Kernel):
         return out
 
 
+class SpillCounts(NamedTuple):
+    """What ``deform_conv_bwd_cuda``'s launches did with the input
+    gradient's shares (a share: one tap of one sample inside the image, C
+    floats)."""
+    spilled: int        # shares sent to global float4 atomics one by one
+    shares: int         # every share
+    window_floats: int  # floats of the windows' sums added to d_x
+
+
 class DeformConvBwdKernel(Kernel):
     """The deformable conv's backward, ``csrc/deform_conv_bwd.cu``, with its
-    own launch count."""
+    own launch count and, on each device, a buffer of three counters that
+    every launch adds to (:meth:`spill_counts`)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self._counts: dict[int, Tensor] = {}
 
     def __call__(self, x: Tensor, offset_mask: Tensor, weight: Tensor,
                  grad_out: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -71,11 +89,29 @@ class DeformConvBwdKernel(Kernel):
         d_w = torch.zeros_like(weight, dtype=torch.float32)
         check_layout(self.name, (weight, d_w), (x, grad_out, d_x), "x")
         if d_x.numel():
+            counts = self._counts.get(dev)
+            if counts is None:
+                counts = self._counts[dev] = torch.zeros(
+                    len(SpillCounts._fields), dtype=torch.int64,
+                    device=x.device)
             self._launch(dev, x.data_ptr(), offset_mask.data_ptr(),
                          weight.data_ptr(), grad_out.data_ptr(),
-                         d_x.data_ptr(), d_om.data_ptr(), d_w.data_ptr(), N,
-                         H, W, C, DTYPE_CODES[x.dtype])
+                         d_x.data_ptr(), d_om.data_ptr(), d_w.data_ptr(),
+                         counts.data_ptr(), N, H, W, C, DTYPE_CODES[x.dtype])
         return d_x.to(x.dtype), d_om, d_w.to(weight.dtype)
+
+    def spill_counts(self) -> SpillCounts:
+        """The counters summed over every device and every launch since the
+        last :meth:`reset_spill_counts`. Reading waits for the device; the
+        launches never do."""
+        sums = [0] * len(SpillCounts._fields)
+        for counts in self._counts.values():
+            sums = [a + b for a, b in zip(sums, counts.tolist())]
+        return SpillCounts(*sums)
+
+    def reset_spill_counts(self) -> None:
+        for counts in self._counts.values():
+            counts.zero_()
 
 
 def _nhwc(like: Tensor, dtype=None, zero: bool = False) -> Tensor:

@@ -347,11 +347,15 @@ deform_conv_bwd.cu``, no TPU counterpart):
      gradient's largest magnitude, bf16 within two bf16 ulps of the f32
      plain gradients of the same bf16 values and that bound; then timed
      against the plain version's forward and backward in turns, beside
-     its bound (``perfbench/counts/deform_conv_bwd.py``); then TransMVSNet's
+     its bound (``perfbench/counts/deform_conv_bwd.py``), and beside the
+     binned scatter's spill share and global float atomics on d_x a pixel
+     (``deform-conv-bwd-scatter`` lines); then TransMVSNet's
      bf16 Adam steps at 640x512x3 B=2 through ``train_entry(arch=
      "transmvsnet")`` (the focal loss), launching exactly K1, K2 and the
      prob conv 3 times a step and the deformable conv's forward and
-     backward 9 times each, the loss falling.
+     backward 9 times each, the loss falling; then the spill share at the
+     ARF's own offsets: the training cell's model after its warm-up steps,
+     one step read a level at a time.
 
 Every cascade forward on the card launches the prob conv's kernel once a
 level, and every path's launches count it beside K1 (or #3/#5). A plain
@@ -1262,10 +1266,15 @@ def deform_conv_bwd_phase(card) -> tuple[float, tuple]:
               f"max error over the largest gradient: {', '.join(report)}; "
               f"bf16 max ulps of the f32 plain gradients: {', '.join(ulps)}")
         del got, want
+        deform_conv_bwd_cuda.reset_spill_counts()
+        with torch.no_grad():
+            deform_conv_bwd_cuda(xb, ob, wb, gb)
+        scatter = deform_conv_bwd_cuda.spill_counts()
         nbytes, ops, tensor_ops = dcn_bwd_work(N, h, w, C, 2)
         b_s, by = dcn_bwd_bound_s(N, h, w, C, 2)
         least_ms += 1e3 * b_s
         bound_by.append(f"L{l} {by}")
+        before_ms = sums.get("deform_conv_bwd", (0.0,))[0]
         time_level(sums, "deform_conv_bwd", f"L{l} bf16 {(N, C, h, w)}",
                    lambda: deform_conv_bwd_cuda(xb, ob, wb, gb),
                    lambda: plain_deform_grads(xb, ob, wb, gb), (10, 2),
@@ -1273,6 +1282,9 @@ def deform_conv_bwd_phase(card) -> tuple[float, tuple]:
                    "plain: the plain forward and its autograd backward; "
                    f"tensor cores {tensor_ops / 1e9!r} GFLOP; ",
                    (1e3 * b_s, by))
+        print_scatter(f"L{l} bf16 {(N, C, h, w)}", scatter, C, N * h * w,
+                      f"kernel {sums['deform_conv_bwd'][0] - before_ms!r} ms, "
+                      f"bound {1e3 * b_s!r} ms; ", card)
         del xb, ob, wb, gb
         torch.cuda.empty_cache()
     k_ms, p_ms = sums["deform_conv_bwd"][:2]
@@ -1281,6 +1293,67 @@ def deform_conv_bwd_phase(card) -> tuple[float, tuple]:
           f"kernel {k_ms!r} ms, plain {p_ms!r} ms; bound {least_ms!r} ms "
           f"({by}) -> {100 * least_ms / k_ms!r} % [{card}]")
     return worst, (k_ms, p_ms, least_ms, by)
+
+
+def print_scatter(label: str, scatter, C: int, pixels: int, note: str,
+                  card) -> None:
+    """A ``deform-conv-bwd-scatter`` line: the binned scatter's spill share
+    and its global float atomics on d_x a pixel (a spilled share's C, and
+    the windows' sums), against the C of each share that the unbinned
+    scatter added."""
+    spilled, shares, window_floats = scatter
+    print(f"deform-conv-bwd-scatter {label}: {note}spill share "
+          f"{100 * spilled / max(shares, 1)!r} % ({spilled} of {shares} "
+          f"shares), global float atomics on d_x a pixel "
+          f"{(spilled * C + window_floats) / pixels!r} (windows' "
+          f"{window_floats / pixels!r}), every share's "
+          f"{shares * C / pixels!r} [{card}]")
+
+
+def arf_cell_scatter(card) -> None:
+    """The binned scatter at the ARF's own offsets: the training cell's
+    model (``perfbench``'s weights of a seed, its traffic's batches, B=2 x 5
+    views at 640x512) after its warm-up steps, then one step read a conv at
+    a time (``deform-conv-bwd-scatter cell`` lines: each level's three convs
+    and the step)."""
+    from casmvsnet_pl_tpu_torch.ops import deform_conv as dc_ops
+    from perfbench import program, scenes
+    from perfbench.harness import load_json
+    cfg = load_json("configs", "transmvsnet_train.json")
+    mix = load_json("traffic", "train_640x512x5_b2.json")
+    B, first, seed = mix["batch"], mix["compared_steps"], 2 ** 31 + 58
+    tr, state = program.trainer(cfg, program.draw_weights(cfg, seed, DEVICE),
+                                DEVICE)
+    batches = [scenes.make_batch(seed, range(j * B, (j + 1) * B),
+                                 tuple(mix["img_wh"]), mix["n_views"],
+                                 mix["focal"], cfg, DEVICE)
+               for j in range(first + 1)]
+    for j in range(first):
+        state, _ = tr.train_step(state, batches[j])
+    kernel, by_shape = dc_ops.deform_conv_bwd_cuda, {}
+
+    def counted(x, om, w, g):
+        kernel.reset_spill_counts()
+        out = kernel(x, om, w, g)
+        sums = by_shape.setdefault(tuple(x.shape), [0, 0, 0])
+        for i, v in enumerate(kernel.spill_counts()):
+            sums[i] += v
+        return out
+    dc_ops.deform_conv_bwd_cuda = counted
+    try:
+        state, _ = tr.train_step(state, batches[first])
+    finally:
+        dc_ops.deform_conv_bwd_cuda = kernel
+    spilled = shares = 0
+    for (N, C, h, w), sums in sorted(by_shape.items()):
+        print_scatter(f"cell, after {first} steps, the 3 convs at "
+                      f"{(N, C, h, w)}", sums, C, 3 * N * h * w, "", card)
+        spilled, shares = spilled + sums[0], shares + sums[1]
+    print(f"deform-conv-bwd-scatter cell step: spill share "
+          f"{100 * spilled / max(shares, 1)!r} % ({spilled} of {shares} "
+          f"shares) [{card}]")
+    del tr, state, batches
+    torch.cuda.empty_cache()
 
 
 def transmvsnet_train_path(train_entry, card) -> dict:
@@ -3670,6 +3743,7 @@ def main() -> int:
     errs["deform_conv_bwd_cuda"], dcn_bwd_times = deform_conv_bwd_phase(card)
     paths["transmvsnet"] = transmvsnet_path(entry)
     paths["transmvsnet_train"] = transmvsnet_train_path(train_entry, card)
+    arf_cell_scatter(card)
     profile_paths(entry, train_entry, card)
 
     errs.update(check_tap_reduce(inputs2))

@@ -389,24 +389,27 @@ def _plain_grads(x, om, w, gy):
                                gy.float())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("C,shape", [(8, (3, 37, 29)), (16, (2, 20, 33)),
-                                     (32, (5, 24, 31))])
-def test_the_deformable_backward_kernel_matches_plain_autograd(cuda, C,
-                                                               shape):
-    """One launch gives the three gradients: f32 within 1e-4 of each
-    gradient's largest magnitude (the two sum in different orders, the
-    input's by atomics); bf16 within two bf16 ulps of the f32 plain
-    gradients of the same bf16 values, and that bound."""
-    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
+def _bwd_inputs(cuda, C, shape, seed, offset_scale=2.0):
+    """x, offsets and masks (offsets times ``offset_scale``, masks N(0, 2)),
+    weight and output gradient, channels_last, f32."""
     N, H, W = shape
-    g = torch.Generator(device=cuda).manual_seed(10 + C)
+    g = torch.Generator(device=cuda).manual_seed(seed)
 
     def nhwc(c, scale=1.0):
         return (torch.randn((N, H, W, c), generator=g, device=cuda)
                 * scale).permute(0, 3, 1, 2)
     x, om, gy = nhwc(C), nhwc(27, 2.0), nhwc(C)
+    om[:, :18] *= offset_scale / 2.0
     w = torch.randn((C, C, 3, 3), generator=g, device=cuda) * (2 / 9 / C) ** .5
+    return x, om, w, gy
+
+
+def _check_bwd_kernel(x, om, w, gy):
+    """The kernel's three gradients against plain autograd: f32 within 1e-4
+    of each gradient's largest magnitude (the two sum in different orders,
+    the input's by atomics); bf16 within two bf16 ulps of the f32 plain
+    gradients of the same bf16 values, and that bound."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
     before = deform_conv_bwd_cuda.launches
     got = deform_conv_bwd_cuda(x, om, w, gy)
     assert deform_conv_bwd_cuda.launches == before + 1
@@ -421,6 +424,70 @@ def test_the_deformable_backward_kernel_matches_plain_autograd(cuda, C,
         assert a.dtype == torch.bfloat16
         tol = 2 * _bf16_ulp(b) + 1e-4 * b.abs().max()
         assert ((a.float() - b).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,shape", [(8, (3, 37, 29)), (16, (2, 20, 33)),
+                                     (32, (5, 24, 31))])
+def test_the_deformable_backward_kernel_matches_plain_autograd(cuda, C,
+                                                               shape):
+    """One launch gives the three gradients, held to plain autograd as
+    ``_check_bwd_kernel`` says."""
+    _check_bwd_kernel(*_bwd_inputs(cuda, C, shape, 10 + C))
+
+
+# the binned scatter's cases, each at every C: offsets far beyond any window
+# (std 20 px, many taps outside the image: the spill path), zero offsets
+# (nothing spills), and ragged shapes that no tile divides, N >= 3 (windows
+# meet the images' edges and each other's images)
+BIN_CASES = {"far": ((3, 37, 29), 20.0), "zero": ((3, 24, 32), 0.0),
+             "ragged": ((4, 37, 29), 2.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+@pytest.mark.parametrize("C", (8, 16, 32))
+def test_the_deformable_backward_kernel_bins_and_spills(cuda, C, case):
+    """The binned scatter against plain autograd (as the test above), and
+    its counters: every share counted, none spilled at zero offsets, some
+    at far ones."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
+    shape, scale = BIN_CASES[case]
+    x, om, w, gy = _bwd_inputs(cuda, C, shape, 20 + C, scale)
+    deform_conv_bwd_cuda.reset_spill_counts()
+    _check_bwd_kernel(x, om, w, gy)
+    spilled, shares, adds = deform_conv_bwd_cuda.spill_counts()
+    N, H, W = shape
+    assert 0 < shares <= 2 * 36 * N * H * W and adds > 0
+    if case == "zero":
+        # each sample sits on a pixel next to its own: its 2 x 2 block of
+        # taps lies inside every window (a halo of 2 or more)
+        assert spilled == 0
+    elif case == "far":
+        assert spilled > 0.1 * shares
+    else:
+        assert spilled < shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", (8, 16, 32))
+def test_the_deformable_backward_kernel_repeats(cuda, C):
+    """Two launches on the same inputs agree within the tolerance the
+    kernel is held to against plain autograd (atomics add in an order that
+    changes from run to run): f32 within 1e-4 of each gradient's largest
+    magnitude, bf16 within two bf16 ulps and that bound."""
+    from casmvsnet_pl_tpu_torch.kernels import deform_conv_bwd_cuda
+    x, om, w, gy = _bwd_inputs(cuda, C, (3, 37, 29), 30 + C)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (x, om, w, gy)]
+        first = deform_conv_bwd_cuda(*args)
+        again = deform_conv_bwd_cuda(*args)
+        for a, b in zip(first, again):
+            a, b = a.float(), b.float()
+            tol = 1e-4 * a.abs().max()
+            if dtype == torch.bfloat16:
+                tol = tol + 2 * _bf16_ulp(a)
+            assert ((a - b).abs() <= tol).all()
 
 
 @pytest.mark.cuda
